@@ -1,0 +1,25 @@
+"""PyTorch port of msml_tpu for NVIDIA Hopper (H100).
+
+Each module keeps the name and path of its counterpart in `msml_tpu/`, which
+stays the reference. The port imports torch and never jax or msml_tpu.
+Entry points run on `cuda` unless the caller asks for the CPU.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """`device` as a torch.device; raises if CUDA is asked for but absent.
+
+    Nothing in the port falls back to the CPU: a caller gets it only by
+    asking for it."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r} requested but CUDA is not available; "
+            "pass device='cpu' to run the plain PyTorch path")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device!r} (cuda or cpu)")
+    return dev

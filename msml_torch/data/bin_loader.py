@@ -1,0 +1,60 @@
+"""Verification-set `.bin` loader (lfw.bin / cfp_fp.bin / agedb_30.bin).
+
+The port's own copy of `msml_tpu/data/bin_loader.py::load_bin` and
+`msml_tpu/data/recordio.py::imdecode`. Parity target
+`eval/verification.py:201-236`: a pickled (bins, issame_list) pair where
+bins are encoded JPEGs; each image is decoded to (H, W, 3) RGB and a
+horizontally flipped copy is produced. `cv2` is imported only to decode.
+"""
+
+from __future__ import annotations
+
+import pickle
+from typing import List, Tuple
+
+import numpy as np
+
+
+def imdecode(buf: bytes, to_rgb: bool = True) -> np.ndarray:
+    """mx.image.imdecode parity via cv2 (same OpenCV jpeg path)."""
+    import cv2
+
+    img = cv2.imdecode(np.frombuffer(buf, np.uint8), cv2.IMREAD_COLOR)
+    if img is None:
+        raise ValueError("image decode failed")
+    return img[:, :, ::-1] if to_rgb else img
+
+
+def load_bin(path: str, image_size=(112, 112)
+             ) -> Tuple[List[np.ndarray], List[bool]]:
+    """-> ([orig (N,H,W,3) f32 0..255, flipped ...], issame)."""
+    with open(path, "rb") as f:
+        try:
+            bins, issame_list = pickle.load(f)
+        except UnicodeDecodeError:
+            f.seek(0)
+            bins, issame_list = pickle.load(f, encoding="bytes")
+    n = len(issame_list) * 2
+    data = np.empty((n, image_size[0], image_size[1], 3), np.float32)
+    for i in range(n):
+        buf = bins[i]
+        if not isinstance(buf, (bytes, bytearray)):
+            buf = bytes(buf)
+        img = imdecode(buf)
+        if img.shape[0] != image_size[0]:
+            img = _resize_short(img, image_size[0])
+        data[i] = img
+    flipped = data[:, :, ::-1, :].copy()
+    return [data, flipped], list(issame_list)
+
+
+def _resize_short(img: np.ndarray, size: int) -> np.ndarray:
+    """mx.image.resize_short parity (bilinear, short side -> size)."""
+    import cv2
+
+    h, w = img.shape[:2]
+    if h < w:
+        new_h, new_w = size, int(w * size / h)
+    else:
+        new_h, new_w = int(h * size / w), size
+    return cv2.resize(img, (new_w, new_h), interpolation=cv2.INTER_LINEAR)
