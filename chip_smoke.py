@@ -3,7 +3,8 @@
     python3 chip_smoke.py [--seed 0]
 
 Phases:
-  1. device: the card's name and power limit, torch / CUDA / Triton versions;
+  1. device: the card's name and power limit, torch / CUDA / Triton versions
+     (the card must be an H100 80GB HBM3: the memory bound assumes it);
   2. kernel: the Triton `augment_batch` kernel against its plain PyTorch
      version at B = 512, 112 x 112, over every option it takes
      (max abs diff <= 1e-5), the exact block area, and its time;
@@ -65,12 +66,8 @@ def fail(msg: str):
     raise SystemExit(f"chip_smoke FAILED: {msg}")
 
 
-def hbm_bytes_per_s(name: str) -> float:
-    """Published memory rate of the card (NVIDIA data sheets)."""
-    for key, rate in (("H200", 4.8e12), ("NVL", 3.9e12), ("PCIe", 2.0e12)):
-        if key in name:
-            return rate
-    return 3.35e12  # H100 SXM
+CARD = "NVIDIA H100 80GB HBM3"
+HBM_BYTES_PER_S = 3.35e12  # the card's published memory rate
 
 
 def time_ms(fn, windows: int = 5, per_window: int = 20) -> float:
@@ -98,13 +95,15 @@ def phase_device() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     import triton
-    print(f"[1 device] {smi}")
+    print(smi)
+    if smi.split(",")[0].strip() != CARD:
+        fail(f"the memory bound is computed for the {CARD}, not for {smi}")
     print(f"[1 device] torch {torch.__version__} cuda {torch.version.cuda} "
           f"triton {triton.__version__} python {sys.version.split()[0]}")
     return smi
 
 
-def phase_kernel(seed: int, rate: float) -> dict:
+def phase_kernel(seed: int) -> dict:
     from msml_torch.kernels.augment import (augment_batch,
                                             augment_batch_reference)
 
@@ -153,7 +152,7 @@ def phase_kernel(seed: int, rate: float) -> dict:
         ms = time_ms(lambda: augment_batch(img, draws, noise, **kw))
         plain_ms = time_ms(
             lambda: augment_batch_reference(img, draws, noise, **kw))
-        bound_ms = moved / rate * 1e3
+        bound_ms = moved / HBM_BYTES_PER_S * 1e3
         timed[name] = (ms, plain_ms, bound_ms)
         print(f"[2 kernel] {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms), "
               f"{moved / 1e6:.1f} MB moved, bound {bound_ms:.4f} ms = "
@@ -289,8 +288,7 @@ def main(argv=None):
         fail("torch.cuda.is_available() is false")
 
     smi = phase_device()
-    rate = hbm_bytes_per_s(smi)
-    entry = phase_kernel(args.seed, rate)
+    entry = phase_kernel(args.seed)
     model, img_s = phase_model(args.seed)
     entry["launches"] = phase_sweep(args.seed, model)
     print(f"[5 summary] {smi}: augment_batch {entry['ms']:.4f} ms at B={B} "

@@ -18,7 +18,6 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class Policy:
     compute_dtype: torch.dtype = torch.bfloat16
-    output_dtype: torch.dtype = torch.float32
 
     def autocast(self, device_type: str):
         """Context that runs the enclosed ops in `compute_dtype`."""
@@ -27,7 +26,8 @@ class Policy:
         return torch.autocast(device_type, dtype=self.compute_dtype)
 
     def cast_to_output(self, x: torch.Tensor) -> torch.Tensor:
-        return x.to(self.output_dtype)
+        """Outputs leave the model in float32 under every policy."""
+        return x.to(torch.float32)
 
 
 DEFAULT_POLICY = Policy()

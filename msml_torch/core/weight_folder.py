@@ -10,29 +10,25 @@ JAX and are not read here.
 from __future__ import annotations
 
 import os
-from typing import Optional
 
 import torch
 
 from msml_torch import resolve_device
 from msml_torch.core.config import config_init, load_yaml
-from msml_torch.core.precision import policy_from_config
 from msml_torch.nn.msml import msml_from_config
 
 
-def load_weight_folder(weight_folder: str, device="cuda",
-                       fp16: Optional[bool] = None):
+def load_weight_folder(weight_folder: str, device="cuda"):
     """-> (cfg, model) with the weights of `backbone.pth`, in eval mode.
 
-    fp16=None uses the folder's own config (bf16 compute). The
-    classification head is dropped: eval never uses it (cli/test.py:60-72)."""
+    The precision follows the folder's own config (`fp16: true` -> bf16
+    compute). The classification head is dropped: eval never uses it
+    (cli/test.py:60-72)."""
     dev = resolve_device(device)
     cfg = load_yaml(os.path.join(weight_folder, "config.yaml"))
     cfg.out_folder = os.path.dirname(weight_folder.rstrip("/")) or "out"
     config_init(cfg, make_output_dir=False)
-    if fp16 is None:
-        fp16 = bool(cfg.get("fp16", True))
-    model = msml_from_config(cfg, policy=policy_from_config(fp16), device=dev)
+    model = msml_from_config(cfg, device=dev)
     sd = torch.load(os.path.join(weight_folder, "backbone.pth"),
                     map_location="cpu", weights_only=True)
     sd = sd.get("state_dict", sd)
