@@ -5,17 +5,32 @@
 Phases:
   1. device: the card's name and power limit, torch / CUDA / Triton versions
      (the card must be an H100 80GB HBM3: the memory bound assumes it);
-  2. kernel: the Triton `augment_batch` kernel against its plain PyTorch
-     version at B = 512, 112 x 112, over every option it takes
-     (max abs diff <= 1e-5), the exact block area, and its time;
+  2. kernel: each Triton kernel against its plain PyTorch version, and its
+     time beside its memory bound:
+     a. `augment_batch` at B = 512, 112 x 112 f32, over every option it
+        takes (max abs diff <= 1e-5), and the exact block area;
+     b. `augment_batch` on uint8 images at B = 128, the training input
+        stage (max abs diff <= 1e-5);
+     c. `prelu_fwd` / `prelu_bwd` at every distinct PReLU shape of
+        arc18_msml at B = 128, bf16 and f32: y and dx exactly equal, dalpha
+        relative L2 error <= 1e-5 (f32) or 1e-3 (bf16); times at the
+        largest site beside `F.prelu` and its autograd backward;
   3. model: arc18_msml (configs/arc18_msml.yaml, random weights from the
      seed) in bf16 at B = 512 against the same model in float32 (TF32 off)
      and against the float32 model on the CPU; bf16 img/s;
-  4. sweep: the main path, `occlusion_sweep_device` with the model as
+  4. sweep: the eval path, `occlusion_sweep_device` with the model as
      extract_fn over 1200 synthetic pairs, every occlusion ratio, 2 repeats;
-     the kernel's launch count is read from this phase alone;
-  5. a summary line, the JSON line of the kernels the run launched (with
-     their times, bounds and launch counts), then the final JSON line.
+     the launch counts of this path are read from this phase alone;
+  5. train: the training path, `make_train_step` on arc18_msml with
+     webface's 10572 classes, bf16, B = 128, synthetic uint8 batches: 30
+     steps on one batch must lower total_loss, every metric finite, each
+     kernel launched as often per step as the model has sites; then img/s
+     over timed windows and a torch.profiler breakdown of device time by
+     kernel; then one float32 step (TF32 off) at B = 4 on the card against
+     the same step on the CPU (metrics rtol 1e-3, parameter updates
+     relative L2 error <= 1e-2);
+  6. a summary line, the JSON line of the kernels (with their times, bounds
+     and launch counts), then the final JSON line.
 
 Exits non-zero, without the final line, when CUDA is missing or any check
 fails. Needs no network, PyYAML, OpenCV or Pillow.
@@ -56,7 +71,10 @@ ARC18_MSML = {
 }
 
 B, H, W = 512, 112, 112
+B_TRAIN = 128           # configs/arc18_msml.yaml batch_size
+PRELU_SITES = 42        # 9 iResNet + 24 FMCnn + 9 U-Net encoder
 KERNEL_TOL = 1e-5       # kernel vs plain version, max abs diff
+DALPHA_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-3}  # relative L2
 BF16_MIN_COS = 0.99     # bf16 vs f32 feature cosine
 CPU_MIN_COS = 0.9999    # card f32 (TF32 off) vs CPU f32 feature cosine
 MAIN_PATH = dict(lo=40, hi=41, fill="black", relight=False, use_norm=True)
@@ -165,13 +183,169 @@ def phase_kernel(seed: int) -> dict:
             "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
 
 
-def build_model(seed: int, policy=None, device="cuda"):
+def phase_kernel_uint8(seed: int) -> dict:
+    """The training input stage: uint8 images through `augment_batch`."""
+    from msml_torch.kernels.augment import (augment_batch,
+                                            augment_batch_reference)
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    img = torch.randint(0, 256, (B_TRAIN, H, W, 3), generator=gen,
+                        device="cuda", dtype=torch.uint8)
+    draws = torch.rand((B_TRAIN, 6), generator=gen, device="cuda")
+    noise = torch.randn(img.shape, generator=gen, device="cuda")
+    max_err = 0.0
+    for fill, relight, use_norm, (lo, hi) in itertools.product(
+            ("black", "gauss"), (True, False), (True, False),
+            ((0, 1), (20, 51))):
+        kw = dict(lo=lo, hi=hi, fill=fill, relight=relight,
+                  use_norm=use_norm)
+        err = (augment_batch(img, draws, noise, **kw)
+               - augment_batch_reference(img, draws, noise, **kw)
+               ).abs().max().item()
+        if not err <= KERNEL_TOL:
+            fail(f"uint8 kernel vs plain max abs diff {err} at {kw}")
+        max_err = max(max_err, err)
+    torch.cuda.synchronize()
+    train = dict(relight=True, use_norm=True)  # device_input_stage
+    moved = img.numel() * (1 + 4) + draws.numel() * 4
+    ms = time_ms(lambda: augment_batch(img, draws, **train))
+    plain_ms = time_ms(lambda: augment_batch_reference(img, draws, **train))
+    bound_ms = moved / HBM_BYTES_PER_S * 1e3
+    print(f"[2b uint8] 16 option sets at B={B_TRAIN}: max abs diff "
+          f"{max_err} (tolerance {KERNEL_TOL}); input stage (relight + "
+          f"normalize) {ms:.4f} ms (plain {plain_ms:.4f} ms), "
+          f"{moved / 1e6:.1f} MB moved, bound {bound_ms:.4f} ms = "
+          f"{bound_ms / ms:.1%} of the memory rate")
+    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms}
+
+
+def prelu_sites(seed: int):
+    """(C, H, W) of every PReLU call in one arc18_msml forward."""
+    from msml_torch.nn.common import PReLU
+
+    model = build_model(seed)
+    shapes = []
+    for m in model.modules():
+        if isinstance(m, PReLU):
+            m.register_forward_pre_hook(
+                lambda _, args: shapes.append(tuple(args[0].shape[1:])))
+    with torch.inference_mode():
+        model(torch.zeros((2, 3, H, W), device="cuda"))
+    return shapes
+
+
+def phase_kernel_prelu(seed: int):
+    """prelu_fwd / prelu_bwd against the plain versions at every distinct
+    site shape, then timed at the largest site."""
+    import torch.nn.functional as F
+
+    from msml_torch.kernels.prelu import (_geometry, prelu, prelu_bwd,
+                                          prelu_bwd_reference, prelu_fwd,
+                                          prelu_reference)
+
+    sites = prelu_sites(seed)
+    if len(sites) != PRELU_SITES:
+        fail(f"{len(sites)} PReLU sites in arc18_msml, expected "
+             f"{PRELU_SITES}")
+    shapes = sorted(set(sites), key=lambda s: -s[0] * s[1] * s[2])
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    errs = {"fwd": 0.0, "bwd": 0.0}
+    worst_da = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for c, h, w in shapes:
+            x = torch.randn((B_TRAIN, c, h, w), generator=gen,
+                            device="cuda")
+            x[torch.rand(x.shape, generator=gen, device="cuda") < 0.05] = 0
+            x = x.to(dtype)
+            g = torch.randn(x.shape, generator=gen, device="cuda").to(dtype)
+            a = torch.rand((c,), generator=gen, device="cuda") * 0.5
+            y, y_ref = prelu_fwd(x, a), prelu_reference(x, a)
+            (dx, da), (dx_ref, da_ref) = (prelu_bwd(g, x, a),
+                                         prelu_bwd_reference(g, x, a))
+            torch.cuda.synchronize()
+            if not (torch.equal(y, y_ref) and torch.equal(dx, dx_ref)):
+                fail(f"prelu {dtype} {(c, h, w)}: y or dx not equal to the "
+                     "plain version")
+            rel = ((da - da_ref).norm() / da_ref.norm()).item()
+            if not rel <= DALPHA_TOL[dtype]:
+                fail(f"prelu {dtype} {(c, h, w)}: dalpha relative error "
+                     f"{rel} > {DALPHA_TOL[dtype]}")
+            worst_da[dtype] = max(worst_da.get(dtype, 0.0), rel)
+            errs["fwd"] = max(errs["fwd"],
+                              (y.float() - y_ref.float()).abs().max().item())
+            errs["bwd"] = max(errs["bwd"], (da - da_ref).abs().max().item())
+    print(f"[2c prelu] {len(sites)} sites, {len(shapes)} distinct (C, H, W) "
+          f"at B={B_TRAIN}, bf16 and f32: y and dx exactly equal to the "
+          "plain version; dalpha relative L2 error "
+          + ", ".join(f"{str(k)[6:]} {v:.2e}" for k, v in worst_da.items()))
+
+    timed = {}
+    c, h, w = shapes[0]
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.randn((B_TRAIN, c, h, w), generator=gen,
+                        device="cuda").to(dtype)
+        g = torch.randn(x.shape, generator=gen, device="cuda").to(dtype)
+        a = torch.rand((c,), generator=gen, device="cuda") * 0.5
+        xr, ar = x.clone().requires_grad_(), a.clone().requires_grad_()
+        y_lib = F.prelu(xr, ar.to(dtype))
+
+        def fwd_bwd(fn):
+            xg, ag = x.clone().requires_grad_(), a.clone().requires_grad_()
+            return torch.autograd.grad(fn(xg, ag), (xg, ag), g)
+
+        lib = lambda xx, aa: F.prelu(xx, aa.to(xx.dtype))
+        n_parts = math.prod(_geometry(x)[-1])  # dalpha partials
+        nbytes = x.numel() * x.element_size()
+        timed[dtype] = {
+            "fwd": (time_ms(lambda: prelu_fwd(x, a)),
+                    time_ms(lambda: prelu_reference(x, a)),
+                    time_ms(lambda: lib(x, a)),
+                    2 * nbytes / HBM_BYTES_PER_S * 1e3),
+            "bwd": (time_ms(lambda: prelu_bwd(g, x, a)),
+                    time_ms(lambda: prelu_bwd_reference(g, x, a)),
+                    time_ms(lambda: torch.autograd.grad(
+                        y_lib, (xr, ar), g, retain_graph=True)),
+                    (3 * nbytes + 8 * n_parts) / HBM_BYTES_PER_S * 1e3),
+            "fwd+bwd": (time_ms(lambda: fwd_bwd(prelu)),
+                        time_ms(lambda: fwd_bwd(prelu_reference)),
+                        time_ms(lambda: fwd_bwd(lib)), None)}
+        for part, (ms, plain_ms, lib_ms, bound_ms) in timed[dtype].items():
+            bound = ("" if bound_ms is None else
+                     f", bound {bound_ms:.4f} ms = {bound_ms / ms:.1%} of "
+                     "the memory rate")
+            print(f"[2c prelu] {str(dtype)[6:]} {part} at "
+                  f"{(B_TRAIN, c, h, w)}: kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, F.prelu {lib_ms:.4f} ms{bound}")
+    entries = []
+    for name, part, err in (("prelu_fwd", "fwd", errs["fwd"]),
+                            ("prelu_bwd", "bwd", errs["bwd"])):
+        ms, plain_ms, lib_ms, bound_ms = timed[torch.bfloat16][part]
+        entries.append({
+            "name": name, "route": "triton",
+            "source": "msml_torch/kernels/prelu.py",
+            "replaces": ("benchmarks/negative/prelu_pallas.py:46"
+                         if part == "fwd" else
+                         "benchmarks/negative/prelu_pallas.py:53"),
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": lib_ms,
+            "shape": [B_TRAIN, c, h, w], "dtype": "bfloat16"})
+    return entries
+
+
+def arc18_config(**over):
     from msml_torch.core.config import Config, config_init
+
+    cfg = Config.from_dict(dict(ARC18_MSML, **over))
+    config_init(cfg, make_output_dir=False)
+    return cfg
+
+
+def build_model(seed: int, policy=None, device="cuda", head=False):
     from msml_torch.nn.msml import msml_from_config
 
-    cfg = Config.from_dict(ARC18_MSML)
-    config_init(cfg, make_output_dir=False)
-    return msml_from_config(cfg, policy=policy, device=device, seed=seed)
+    return msml_from_config(arc18_config(), policy=policy, device=device,
+                            seed=seed, head=head)
 
 
 def cosines(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -244,7 +418,6 @@ def synthetic_pairs(seed: int, pairs: int = 1200):
 
 def phase_sweep(seed: int, model, repeats: int = 2):
     from msml_torch.eval.occ_sweep_device import occlusion_sweep_device
-    from msml_torch.kernels import augment
 
     data_list, issame = synthetic_pairs(seed)
 
@@ -252,17 +425,19 @@ def phase_sweep(seed: int, model, repeats: int = 2):
     def extract_fn(img):
         return model(img)[0]
 
-    augment.augment_batch.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     rows = occlusion_sweep_device(data_list, issame, extract_fn,
                                   fill_type="black", repeats=repeats,
                                   seed=seed, device="cuda")
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = augment.augment_batch.launches
+    launches = read_launches()
     n = data_list[0].shape[0]
     passes = 1 + 9 * repeats
-    want = passes * 2 * math.ceil(n / 512)
+    batches = passes * 2 * math.ceil(n / 512)
+    want = {"augment_batch": batches, "prelu_fwd": batches * PRELU_SITES,
+            "prelu_bwd": 0}
     if len(rows) != 10:
         fail(f"{len(rows)} sweep rows, expected 10")
     for row in rows:
@@ -270,14 +445,166 @@ def phase_sweep(seed: int, model, repeats: int = 2):
         if not all(math.isfinite(v) for v in vals):
             fail(f"non-finite sweep row {row}")
     if launches != want:
-        fail(f"augment_batch launched {launches} times, expected {want}")
+        fail(f"sweep launches {launches}, expected {want}")
     print(f"[4 sweep] {len(issame)} pairs, 10 ratios, {repeats} repeats: "
           f"{seconds:.1f} s host clock for {passes * 2 * n} images "
           f"({passes * 2 * n / seconds:.1f} img/s incl. metrics), "
-          f"{launches} kernel launches")
+          f"kernel launches {launches}")
     print("[4 sweep] avg_acc by ratio: " + ", ".join(
         f"{r['lo']}%: {r['avg_acc']:.4f}" for r in rows))
     return launches
+
+
+def reset_launches():
+    from msml_torch.kernels import augment, prelu
+
+    for fn in (augment.augment_batch, prelu.prelu_fwd, prelu.prelu_bwd):
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    from msml_torch.kernels import augment, prelu
+
+    return {fn.__name__: fn.launches for fn in (
+        augment.augment_batch, prelu.prelu_fwd, prelu.prelu_bwd)}
+
+
+def phase_train(seed: int, steps: int = 30):
+    """The training path at B = 128 in bf16; -> (launches, img/s)."""
+    from msml_torch.core.config import lr_step_factor
+    from msml_torch.data.synthetic import synthetic_batch
+    from msml_torch.train.train_step import init_train_state, make_train_step
+
+    cfg = arc18_config()
+    state = init_train_state(build_model(seed, head=True), cfg, "cuda", seed)
+    step = make_train_step(cfg)
+    host = synthetic_batch(B_TRAIN, num_classes=cfg.num_classes, seed=seed,
+                           uint8=True)
+    batch = {k: torch.as_tensor(host[k], device="cuda")
+             for k in ("img", "label", "msk")}
+    lr = lr_step_factor(cfg, 0)
+
+    reset_launches()
+    history = [step(state, batch, lr) for _ in range(steps)]
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want = {"augment_batch": steps, "prelu_fwd": steps * PRELU_SITES,
+            "prelu_bwd": steps * PRELU_SITES}
+    if launches != want:
+        fail(f"train launches {launches}, expected {want}")
+    for i, m in enumerate(history):
+        bad = [k for k, v in m.items() if not torch.isfinite(v).item()]
+        if bad:
+            fail(f"non-finite {bad} at step {i}")
+    losses = [m["total_loss"].item() for m in history]
+    if not losses[-1] < losses[0]:
+        fail(f"total_loss did not fall over {steps} steps: {losses}")
+    print(f"[5 train] arc18_msml bf16, {cfg.num_classes} classes, "
+          f"B={B_TRAIN}, {steps} steps on one batch: total_loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; last metrics "
+          + ", ".join(f"{k} {v.item():.4f}" for k, v in history[-1].items()))
+    print(f"[5 train] launches per step: " + ", ".join(
+        f"{k} {v // steps}" for k, v in launches.items())
+        + f" ({PRELU_SITES} PReLU sites)")
+
+    ms = time_ms(lambda: step(state, batch, lr), windows=5, per_window=4)
+    img_s = B_TRAIN / ms * 1e3
+    print(f"[5 train] step {ms:.2f} ms = {img_s:.1f} img/s (median of 5 "
+          "windows of 4 steps, CUDA events)")
+    profile_train(lambda: step(state, batch, lr), ms)
+    return launches, img_s
+
+
+def profile_train(run_step, step_ms: float, steps: int = 4):
+    """Device time by kernel over `steps` train steps (torch.profiler), and
+    the busy share against the CUDA-event step time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            run_step()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    if not busy_us:
+        print("[5 train] profile: no device time in the trace (not "
+              "measured)")
+        return
+    per_step = busy_us / steps / 1e3
+    print(f"[5 train] profile, {steps} steps: device busy {per_step:.2f} ms "
+          f"per step = {per_step / step_ms:.1%} of the {step_ms:.2f} ms "
+          f"step, {len(kernels)} kernel names")
+    groups = {"prelu (Triton)": ("_prelu_",), "augment (Triton)": (
+        "_augment_kernel",), "conv / gemm": ("conv", "gemm", "xmma", "sm90",
+                                             "cutlass", "implicit"),
+              "batch norm": ("batch_norm", "bn_", "welford"),
+              "optimizer": ("multi_tensor", "foreach")}
+    shares = dict.fromkeys(groups, 0.0)
+    for e in kernels:
+        for g, keys in groups.items():
+            if any(k in e.key.lower() for k in keys):
+                shares[g] += e.self_device_time_total
+                break
+    shares["other"] = busy_us - sum(shares.values())
+    print("[5 train] profile by group (ms per step, share of device "
+          "time): " + "; ".join(f"{g} {v / steps / 1e3:.2f} "
+                                f"({v / busy_us:.1%})"
+                                for g, v in shares.items()))
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"[5 train]   {e.self_device_time_total / steps / 1e3:8.3f} ms"
+              f"  x{e.count // steps:<4d} {e.key[:100]}")
+
+
+def phase_train_cpu_parity(seed: int, b: int = 4):
+    """One float32 step (TF32 off) on the card against the CPU, from the
+    same weights, batch and relight draws."""
+    from msml_torch.core.precision import FULL_PRECISION
+    from msml_torch.data.synthetic import synthetic_batch
+    from msml_torch.train.train_step import init_train_state, make_train_step
+
+    cfg = arc18_config(batch_size=b)
+    batch = synthetic_batch(b, num_classes=cfg.num_classes, seed=seed + 4,
+                            uint8=True)
+    draws = torch.rand((b, 3), generator=torch.Generator().manual_seed(seed))
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = {}
+        for dev in ("cuda", "cpu"):
+            model = build_model(seed, policy=FULL_PRECISION, device=dev,
+                                head=True)
+            state = init_train_state(model, cfg, dev, seed)
+            names = {p: n for n, p in model.named_parameters()}
+            m = make_train_step(cfg)(state, batch, 1.0,
+                                     light_draws=draws.to(dev))
+            upd = {names[p]: (state.optimizer.state[p]["momentum_buffer"]
+                              * g["lr"]).double().cpu()
+                   for g in state.optimizer.param_groups
+                   for p in g["params"]}
+            out[dev] = ({k: v.item() for k, v in m.items()}, upd)
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+    (mg, ug), (mc, uc) = out["cuda"], out["cpu"]
+    for k in mc:
+        if not math.isclose(mg[k], mc[k], rel_tol=1e-3, abs_tol=1e-9):
+            fail(f"card vs CPU f32 step: {k} {mg[k]} vs {mc[k]}")
+    err = math.sqrt(sum(((ug[k] - uc[k]) ** 2).sum().item() for k in uc)
+                    / sum((uc[k] ** 2).sum().item() for k in uc))
+    if not err <= 1e-2:
+        fail(f"card vs CPU f32 step: update relative L2 error {err}")
+    worst = max(uc, key=lambda k: ((ug[k] - uc[k]).norm()
+                                   / uc[k].norm()).item())
+    print(f"[5 train] card f32 (TF32 off) vs CPU f32, one step at B={b}: "
+          "metrics " + ", ".join(f"{k} {mg[k]:.6f}/{mc[k]:.6f}" for k in mc)
+          + f"; update relative L2 error {err:.2e} (worst tensor {worst} "
+          f"{((ug[worst] - uc[worst]).norm() / uc[worst].norm()).item():.2e})")
 
 
 def main(argv=None):
@@ -288,13 +615,31 @@ def main(argv=None):
         fail("torch.cuda.is_available() is false")
 
     smi = phase_device()
-    entry = phase_kernel(args.seed)
-    model, img_s = phase_model(args.seed)
-    entry["launches"] = phase_sweep(args.seed, model)
-    print(f"[5 summary] {smi}: augment_batch {entry['ms']:.4f} ms at B={B} "
-          f"(bound {entry['bound_ms']:.4f} ms), eval forward {img_s:.1f} "
-          "img/s bf16")
-    print(json.dumps({"kernels": [entry]}))
+    augment_entry = phase_kernel(args.seed)
+    uint8 = phase_kernel_uint8(args.seed)
+    prelu_entries = phase_kernel_prelu(args.seed)
+    model, eval_img_s = phase_model(args.seed)
+    sweep_launches = phase_sweep(args.seed, model)
+    del model
+    train_launches, train_img_s = phase_train(args.seed)
+    phase_train_cpu_parity(args.seed)
+
+    # this slice's path is the train step: its launches, and the uint8
+    # input stage's times at B = 128; the eval path's kept beside them
+    augment_entry["sweep"] = {k: augment_entry.pop(k) for k in (
+        "ms", "plain_ms", "bound_ms")}
+    augment_entry["sweep"]["launches"] = sweep_launches["augment_batch"]
+    augment_entry.update(uint8, launches=train_launches["augment_batch"])
+    augment_entry["max_abs_err"] = max(augment_entry["max_abs_err"],
+                                       uint8["max_abs_err"])
+    entries = [augment_entry] + prelu_entries
+    for e in prelu_entries:
+        e["launches"] = train_launches[e["name"]]
+    print(f"[6 summary] {smi}: train step {train_img_s:.1f} img/s bf16 at "
+          f"B={B_TRAIN}; eval forward {eval_img_s:.1f} img/s at B={B}; "
+          + "; ".join(f"{e['name']} {e['ms']:.4f} ms (bound "
+                      f"{e['bound_ms']:.4f} ms)" for e in entries))
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -114,6 +114,16 @@ def _config_dataset(cfg: Config) -> None:
         raise ValueError(f"Unknown dataset: {cfg.dataset}")
 
 
+def lr_step_factor(cfg: Config, epoch: int) -> float:
+    """The reference's LambdaLR closure (reference `config.py:35-39,64-68`;
+    `msml_tpu/core/config.py:145-151`): quadratic warmup, then step decay
+    at `decay_epochs`."""
+    if epoch < cfg.warmup_epoch:
+        return ((epoch + 1) / (4 + 1)) ** 2
+    return cfg.decay_scale ** len([m for m in cfg.decay_epochs
+                                   if m - 1 <= epoch])
+
+
 def _config_recipe(cfg: Config) -> None:
     """Training recipe (reference `config.py:71-79`)."""
     cfg.momentum = 0.9

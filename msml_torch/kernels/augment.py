@@ -2,9 +2,11 @@
 normalize, fused in one Triton kernel for Hopper.
 
 Replaces the Pallas kernel `msml_tpu/kernels/augment.py::_gauss_block_kernel`
-(launched by `pallas_augment_batch`, augment.py:131-211) and its jnp twin
+(launched by `pallas_augment_batch`, augment.py:131-211) and its jnp twins:
 `device_augment_batch` (augment.py:92-110), which the on-device occlusion
-sweep calls. Per image, with six uniform draws r0..r5 (augment.py:144-149):
+sweep calls, and `device_input_stage` (augment.py:27-61), the training
+input stage of `device_light` mode. Per image, with six uniform draws r0..r5
+(augment.py:144-149), after a uint8 image is divided by 255 in f32:
   1. block fill: ratio = (lo + floor(r0 (hi - lo))) / 100,
      bw = floor(sqrt(ratio) W), x0 = floor(r1 (W - bw + 1)),
      y0 = floor(r2 (W - bw + 1)) (W for both, as the reference draws it);
@@ -23,8 +25,9 @@ Differences from the TPU kernel, by design:
   * It reads NHWC and writes NCHW, the model's layout, in the same pass.
 
 Bound on the card: memory. Each element costs ~10 flops against 8 bytes
-(read + write, 12 with gauss noise), so the least time is the bytes over the
-HBM rate: at B = 512, 112 x 112 x 3 f32, 77.1 MB read + 77.1 MB written.
+(read + write, 12 with gauss noise; 5 for a uint8 image), so the least time
+is the bytes over the HBM rate: at B = 512, 112 x 112 x 3 f32, 77.1 MB read
++ 77.1 MB written.
 Design: one program per image. A tile is (rows, W, C) padded to powers of
 two, so the NHWC load runs along C and the NCHW store along W and Triton
 coalesces both (a first version with flat (rows, W*C) tiles scattered its
@@ -59,8 +62,9 @@ def _check_args(img: torch.Tensor, draws: torch.Tensor,
     """Validate the inputs; returns whether a block is drawn at all."""
     if img.dim() != 4 or img.shape[-1] not in (1, 3):
         raise ValueError(f"img must be (B, H, W, 1|3), got {tuple(img.shape)}")
-    if img.dtype != torch.float32 or not img.is_contiguous():
-        raise ValueError("img must be contiguous float32")
+    if img.dtype not in (torch.float32, torch.uint8) \
+            or not img.is_contiguous():
+        raise ValueError("img must be contiguous float32 or uint8")
     if tuple(draws.shape) != (img.shape[0], 6) \
             or draws.dtype != torch.float32 or not draws.is_contiguous() \
             or draws.device != img.device:
@@ -91,7 +95,7 @@ def augment_batch_reference(img: torch.Tensor, draws: torch.Tensor,
     r0, r1, r2, r3, r4, r5 = (t.view(b, 1, 1) for t in draws.unbind(1))
     xs = torch.arange(w, dtype=torch.float32, device=img.device).view(1, 1, w)
     ys = torch.arange(h, dtype=torch.float32, device=img.device).view(1, h, 1)
-    out = img
+    out = img.to(torch.float32) / 255.0 if img.dtype == torch.uint8 else img
     if has_block:
         ratio = (lo + torch.floor(r0 * (hi - lo))) * 0.01
         bw = torch.floor(torch.sqrt(ratio) * w)
@@ -117,7 +121,8 @@ def augment_batch(img: torch.Tensor, draws: torch.Tensor,
                   noise: Optional[torch.Tensor] = None, *, lo: int = 0,
                   hi: int = 1, fill: str = "black", relight: bool = False,
                   use_norm: bool = True) -> torch.Tensor:
-    """Block fill + relight + normalize: (B, H, W, C) f32 in [0, 1] ->
+    """Block fill + relight + normalize: (B, H, W, C) f32 in [0, 1], or
+    uint8 in [0, 255] (divided by 255 in f32 first, in the same pass) ->
     (B, C, H, W) f32. `draws`: (B, 6) uniforms in [0, 1); `noise`: unit
     normals shaped like `img`, read only by the gauss fill.
 
@@ -141,13 +146,29 @@ def augment_batch(img: torch.Tensor, draws: torch.Tensor,
         kernel[(b,)](
             img, draws, noise if noise is not None else img, out, h, w,
             C=c, LO=lo, HI=hi, FILL=FILLS[fill], HAS_BLOCK=has_block,
-            RELIGHT=relight, USE_NORM=use_norm, ROWS=rows, BLOCK_W=block_w,
-            BLOCK_C=block_c, num_warps=4)
+            RELIGHT=relight, USE_NORM=use_norm, U8=img.dtype == torch.uint8,
+            ROWS=rows, BLOCK_W=block_w, BLOCK_C=block_c, num_warps=4)
     augment_batch.launches += 1
     return out
 
 
 augment_batch.launches = 0  # kernel launches since the last reset
+
+
+def device_input_stage(img: torch.Tensor, draws: Optional[torch.Tensor],
+                       gauss_light: bool = True,
+                       use_norm: bool = True) -> torch.Tensor:
+    """The training input stage of `device_light` mode: uint8 (B, H, W, C)
+    -> /255 -> Gaussian relight -> (x - 0.5) / 0.5, as (B, C, H, W) f32.
+
+    `draws` (B, 3) are the relight's uniforms (u_cx, u_cy, u_scale), read
+    only when `gauss_light`: cx = u_cx W, cy = u_cy H, scale = 0.7 + 0.7
+    u_scale, the map of `device_gauss_light` (augment.py:51-54)."""
+    b = img.shape[0]
+    six = torch.zeros((b, 6), dtype=torch.float32, device=img.device)
+    if gauss_light:
+        six[:, 3:] = draws
+    return augment_batch(img, six, relight=gauss_light, use_norm=use_norm)
 
 
 @functools.lru_cache(maxsize=None)
@@ -170,10 +191,12 @@ def _kernel():
 
 def _augment_tile(img_ptr, noise_ptr, off, y, x, mask, x0, y0, bw, cx, cy,
                   scale, HAS_BLOCK: tl.constexpr, FILL: tl.constexpr,
-                  RELIGHT: tl.constexpr):
+                  RELIGHT: tl.constexpr, U8: tl.constexpr):
     """One tile of the image after the block fill and the light (before the
     division by the max)."""
-    v = tl.load(img_ptr + off, mask=mask, other=0.0)
+    v = tl.load(img_ptr + off, mask=mask, other=0)
+    if U8:
+        v = v.to(tl.float32) / 255.0
     xf = x.to(tl.float32)
     yf = y.to(tl.float32)
     if HAS_BLOCK:
@@ -195,8 +218,8 @@ def _augment_kernel(img_ptr, draws_ptr, noise_ptr, out_ptr, H, W,
                     C: tl.constexpr, LO: tl.constexpr, HI: tl.constexpr,
                     FILL: tl.constexpr, HAS_BLOCK: tl.constexpr,
                     RELIGHT: tl.constexpr, USE_NORM: tl.constexpr,
-                    ROWS: tl.constexpr, BLOCK_W: tl.constexpr,
-                    BLOCK_C: tl.constexpr):
+                    U8: tl.constexpr, ROWS: tl.constexpr,
+                    BLOCK_W: tl.constexpr, BLOCK_C: tl.constexpr):
     """One program per image: img (B, H, W, C) -> out (B, C, H, W).
 
     Tiles are (ROWS, BLOCK_W, BLOCK_C): addresses run along C on the NHWC
@@ -235,7 +258,7 @@ def _augment_kernel(img_ptr, draws_ptr, noise_ptr, out_ptr, H, W,
             mask = (y < H) & xc_ok
             v = _augment_tile(img_ptr, noise_ptr, (y * W + x) * C + ch,
                               y, x, mask, x0, y0, bw, cx, cy, scale,
-                              HAS_BLOCK, FILL, RELIGHT)
+                              HAS_BLOCK, FILL, RELIGHT, U8)
             acc = tl.maximum(acc, tl.where(mask, v, float("-inf")))
         denom = tl.maximum(tl.max(tl.max(tl.max(acc, axis=2), axis=1),
                                   axis=0), 1e-6)
@@ -245,7 +268,7 @@ def _augment_kernel(img_ptr, draws_ptr, noise_ptr, out_ptr, H, W,
         mask = (y < H) & xc_ok
         v = _augment_tile(img_ptr, noise_ptr, (y * W + x) * C + ch,
                           y, x, mask, x0, y0, bw, cx, cy, scale,
-                          HAS_BLOCK, FILL, RELIGHT)
+                          HAS_BLOCK, FILL, RELIGHT, U8)
         if RELIGHT:
             v = v / denom
         if USE_NORM:

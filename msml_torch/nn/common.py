@@ -2,8 +2,10 @@
 
 Counterpart of `msml_tpu/nn/common.py`. Convolutions use torch's symmetric
 padding (`backbones/frb/iresnet.py:17-35`, `backbones/osb/unet.py:41-59`);
-BatchNorm uses eps 1e-5 and momentum 0.1; PReLU is per channel with init
-0.25. Parameter names are the reference's torch names.
+BatchNorm uses eps 1e-5 and momentum 0.1 and updates its running variance
+as flax does; PReLU is per channel with init 0.25 and runs the Triton
+kernels of `kernels/prelu.py`. Parameter names are the reference's torch
+names.
 """
 
 from __future__ import annotations
@@ -14,19 +16,24 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from msml_torch.heads.margin import MarginHead, SoftmaxHead
+from msml_torch.kernels.prelu import prelu
+
 
 class PReLU(nn.Module):
-    """Per-channel PReLU (`nn.PReLU(C)` parity, parameter `weight`).
+    """Per-channel PReLU (`nn.PReLU(C)` names, parameter `weight`).
 
-    The slope is cast to the input's dtype, so the op also runs on the
-    bf16 activations that autocast produces."""
+    `kernels.prelu.prelu`: the Triton kernels on CUDA, the plain version on
+    the CPU, in eval and train alike. The slope is cast to the input's
+    dtype, so it runs on the bf16 activations that autocast produces, and
+    the gradient at x == 0 is the JAX one (`F.prelu`'s differs there)."""
 
     def __init__(self, num_parameters: int):
         super().__init__()
         self.weight = nn.Parameter(torch.full((num_parameters,), 0.25))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.prelu(x, self.weight.to(x.dtype))
+        return prelu(x, self.weight)
 
 
 def conv3x3(in_planes: int, out_planes: int, stride: int = 1,
@@ -40,9 +47,42 @@ def conv1x1(in_planes: int, out_planes: int, stride: int = 1) -> nn.Conv2d:
     return nn.Conv2d(in_planes, out_planes, 1, stride, 0, bias=False)
 
 
-def batch_norm(channels: int) -> nn.BatchNorm2d:
-    """BatchNorm with torch defaults: eps 1e-5, momentum 0.1."""
-    return nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
+class _FlaxRunningVar:
+    """Train-mode running variance as flax updates it, from the biased
+    batch variance (`nn.BatchNorm(momentum=0.9)`, msml_tpu/nn/common.py:
+    56-61); torch's own update uses the unbiased one, n / (n - 1) larger.
+
+    torch's update of a copy gives rv' = (1 - m) rv + m v n / (n - 1);
+    rv' (n - 1) / n + (1 - m) rv / n is flax's (1 - m) rv + m v. The copy
+    is what the backward keeps, so the buffer itself may change in place."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not (self.training and self.track_running_stats):
+            return super().forward(x)
+        self._check_input_dim(x)
+        self.num_batches_tracked.add_(1)
+        n = x.numel() // x.shape[1]
+        m = self.momentum
+        torch_var = self.running_var.clone()
+        y = F.batch_norm(x, self.running_mean, torch_var, self.weight,
+                         self.bias, True, m, self.eps)
+        with torch.no_grad():
+            self.running_var.mul_((1 - m) / n).add_(torch_var,
+                                                    alpha=(n - 1) / n)
+        return y
+
+
+class BatchNorm2d(_FlaxRunningVar, nn.BatchNorm2d):
+    pass
+
+
+class BatchNorm1d(_FlaxRunningVar, nn.BatchNorm1d):
+    pass
+
+
+def batch_norm(channels: int) -> BatchNorm2d:
+    """BatchNorm with torch defaults: eps 1e-5, momentum 0.1 (flax 0.9)."""
+    return BatchNorm2d(channels, eps=1e-5, momentum=0.1)
 
 
 def conv_transpose(in_planes: int, out_planes: int, kernel_size: int,
@@ -69,9 +109,10 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded initialisation of every parameter and buffer of `model`.
 
     Mirrors the reference flax initialisers: lecun-normal conv and dense
-    kernels, he-normal transposed-conv kernels, zero biases, unit BN scale,
-    BN running statistics (0, 1), PReLU slope 0.25. Draws on the CPU from
-    `generator`, then copies onto the parameters' device."""
+    kernels, he-normal transposed-conv kernels, xavier-uniform head weights,
+    zero biases, unit BN scale, BN running statistics (0, 1), PReLU slope
+    0.25. Draws on the CPU from `generator`, then copies onto the
+    parameters' device."""
 
     def normal_(t: torch.Tensor, std: float) -> None:
         t.copy_(torch.randn(t.shape, generator=generator) * std)
@@ -83,6 +124,10 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
             normal_(m.weight, math.sqrt(2.0 / fan_in))
         elif isinstance(m, (nn.Conv2d, nn.Linear)):
             normal_(m.weight, math.sqrt(1.0 / m.weight[0].numel()))
+        elif isinstance(m, (MarginHead, SoftmaxHead)):
+            limit = math.sqrt(6.0 / sum(m.weight.shape))
+            m.weight.copy_((torch.rand(m.weight.shape, generator=generator)
+                            * 2 - 1) * limit)
         elif isinstance(m, PReLU):
             m.weight.fill_(0.25)
         elif isinstance(m, nn.modules.batchnorm._BatchNorm):

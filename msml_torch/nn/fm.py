@@ -1,4 +1,4 @@
-"""Feature-Masking operators: the OSB->FRB fusion CNNs, NCHW, eval only.
+"""Feature-Masking operators: the OSB->FRB fusion CNNs, NCHW.
 
 Counterpart of `msml_tpu/nn/fm.py`. Parity target
 `backbones/fm/fmoperator.py:35-325`:

@@ -1,4 +1,4 @@
-"""iResNet (ArcFace-style ResNet) Face Recognition Branch, NCHW, eval only.
+"""iResNet (ArcFace-style ResNet) Face Recognition Branch, NCHW.
 
 Counterpart of `msml_tpu/nn/iresnet.py`. Parity targets in the reference:
   * `IBasicBlock`      — `backbones/frb/iresnet.py:38-67`
@@ -19,7 +19,8 @@ import torch
 from torch import nn
 
 from msml_torch.core.precision import f32_region
-from msml_torch.nn.common import PReLU, batch_norm, conv1x1, conv3x3
+from msml_torch.nn.common import (BatchNorm1d, PReLU, batch_norm, conv1x1,
+                                  conv3x3)
 
 IRESNET_LAYERS = {
     "iresnet18": (2, 2, 2, 2),
@@ -100,7 +101,7 @@ class IResNet(nn.Module):
         self.bn2 = batch_norm(planes[3])
         self.fc = nn.Linear(planes[3] * 7 * 7, dim_feature)
         # `features` scale is frozen at 1.0 (iresnet.py:119-120)
-        self.features = nn.BatchNorm1d(dim_feature, eps=1e-5)
+        self.features = BatchNorm1d(dim_feature, eps=1e-5)
         self.features.weight.requires_grad_(False)
         self.fm_ops = nn.ModuleList(fm_ops)
 

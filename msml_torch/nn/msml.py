@@ -1,4 +1,4 @@
-"""MSML composite model: OSB -> FM operators -> FRB, eval forward.
+"""MSML composite model: OSB -> FM operators -> FRB -> classification head.
 
 Counterpart of `msml_tpu/nn/msml.py`. Parity target `backbones/msml.py:15-174`:
   * shape negotiation per FRB type (`_prepare_shapes`, msml.py:47-67)
@@ -6,9 +6,11 @@ Counterpart of `msml_tpu/nn/msml.py`. Parity target `backbones/msml.py:15-174`:
   * OSB output ordering: the OSB returns [seg0..seg3, seg5] small->big;
     reversed, final_seg = seg5 and segs = [seg3, seg2, seg1, seg0] big->small
     feed FM stages 1..4 (msml.py:150-158)
-  * eval forward returns (feature, final_seg) (msml.py:173-174)
-
-The classification head and the training forward are not ported yet.
+  * eval forward returns (feature, final_seg) (msml.py:173-174); the
+    training forward returns (final_cls, final_seg, kd) with
+    final_cls = head(feature, label) + kd, the reference's constant logit
+    shift (msml.py:171; `msml_tpu/nn/msml.py:180-183`). The peer teacher is
+    not ported, so kd is 0.0 (`msml_tpu/nn/iresnet.py:185`).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from torch import nn
 from msml_torch import resolve_device
 from msml_torch.core.precision import DEFAULT_POLICY, Policy, \
     policy_from_config
+from msml_torch.heads.margin import MarginHead, SoftmaxHead
 from msml_torch.nn import iresnet
 from msml_torch.nn.common import init_parameters
 from msml_torch.nn.fm import FMCnn, FMNone
@@ -42,7 +45,11 @@ class MSML(nn.Module):
                  fm_params: Sequence = (3, 2, "tanh", "add"),
                  use_osb: bool = True, use_ori: bool = False,
                  use_decoder: bool = False, width_mult: int = 1,
+                 num_classes: Optional[int] = None,
+                 header_type: str = "AMArcFace",
+                 header_params: Sequence[float] = (64.0, 0.5, 0.0, 0.0),
                  policy: Policy = DEFAULT_POLICY):
+        """num_classes=None builds no classification head (eval only)."""
         super().__init__()
         if len(fm_layers) != 4:
             raise ValueError("fm_layers needs four entries")
@@ -86,13 +93,27 @@ class MSML(nn.Module):
                 raise ValueError("OSB type error")
             self.osb = Unet(input_size=input_size)
 
-    def forward(self, x: torch.Tensor, train: bool = False):
-        """x: (B, 3, 112, 112) float32 -> (feature (B, 512) f32,
-        final_seg (B, 2, 112, 112) f32 or None)."""
-        if train:
-            raise NotImplementedError(
-                "the training forward (classification head, KD) is not "
-                "ported yet")
+        self.classification: Optional[nn.Module] = None
+        if num_classes is not None:
+            if "Softmax" in header_type:
+                self.classification = SoftmaxHead(num_classes, dim_feature)
+            else:
+                s, m, a, k = header_params
+                self.classification = MarginHead(num_classes, dim_feature,
+                                                 header_type, s, m, a, k)
+
+    def forward(self, x: torch.Tensor, label: Optional[torch.Tensor] = None,
+                train: bool = False):
+        """x: (B, 3, 112, 112) float32.
+
+        train=False -> (feature (B, 512) f32, final_seg (B, 2, 112, 112)
+        f32 or None). train=True (the module in train mode, so BatchNorm
+        uses and updates batch statistics; needs the head and `label`) ->
+        (final_cls (B, num_classes) f32, final_seg, kd)."""
+        if train and not (self.training and self.classification is not None
+                          and label is not None):
+            raise ValueError("the training forward needs model.train(), a "
+                             "classification head and labels")
         with self.policy.autocast(x.device.type):
             # Part 1: OSB (`msml.py:150-158`)
             if self.osb is not None:
@@ -105,17 +126,25 @@ class MSML(nn.Module):
                 final_seg = None
             # Part 2: FRB (`msml.py:163-167`)
             feature = self.frb(x, segs)
-        return self.policy.cast_to_output(feature), final_seg
+        feature = self.policy.cast_to_output(feature)
+        if not train:
+            return feature, final_seg
+        kd = 0.0
+        final_cls = self.classification(feature, label) + kd
+        return final_cls, final_seg, kd
 
 
 def msml_from_config(cfg, policy: Policy | None = None, device="cuda",
-                     seed: int = 0) -> MSML:
+                     seed: int = 0, head: bool = False) -> MSML:
     """Build an MSML from a derived Config (see core/config.py), with every
     parameter drawn from a `torch.Generator` seeded with `seed`, on
-    `device`, in eval mode."""
+    `device`, in eval mode. head=True adds the classification head of
+    `num_classes`, `header_type` and `header_params`, for training."""
     dev = resolve_device(device)
     if policy is None:
         policy = policy_from_config(bool(cfg.get("fp16", True)))
+    if float(cfg.get("dropout", 0.0)) != 0.0:
+        raise NotImplementedError("dropout is not ported yet")
     pp = cfg.get("peer_params") or {}
     with torch.device("meta"):  # no draws from the global RNG
         model = MSML(
@@ -127,6 +156,10 @@ def msml_from_config(cfg, policy: Policy | None = None, device="cuda",
             use_ori=bool(pp.get("use_ori", False)),
             use_decoder=bool(pp.get("use_decoder", False)),
             width_mult=cfg.get("width_mult", 1),
+            num_classes=cfg.num_classes if head else None,
+            header_type=cfg.get("header_type", "AMArcFace"),
+            header_params=tuple(cfg.get("header_params",
+                                        (64.0, 0.5, 0.0, 0.0))),
             policy=policy,
         )
     model.to_empty(device=dev)

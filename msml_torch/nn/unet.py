@@ -1,5 +1,5 @@
 """Occlusion Segmentation Branch: U-Net with iResNet encoder + Global Conv
-Modules, NCHW, eval only.
+Modules, NCHW.
 
 Counterpart of `msml_tpu/nn/unet.py`. Parity target
 `backbones/osb/unet.py:16-279`:

@@ -1,10 +1,11 @@
 """Convert msml_tpu (flax) parameter trees into the port's state dict.
 
 The port's own copy of the exporter `msml_tpu/tools/export_torch.py`, for
-the modules the port has: the iResNet trunk, the FMCnn operators and the
-U-Net. The trees come in as nested dicts of numpy arrays (e.g. from
-`jax.device_get`); no JAX is needed here. The result carries the reference's
-torch names, so `MSML.load_state_dict(..., strict=True)` takes it.
+the modules the port has: the iResNet trunk, the FMCnn operators, the
+U-Net and the classification head. The trees come in as nested dicts of
+numpy arrays (e.g. from `jax.device_get`); no JAX is needed here. The
+result carries the reference's torch names, so
+`MSML.load_state_dict(..., strict=True)` takes it.
 
 Layouts:
   conv   (kh, kw, I, O) -> (O, I, kh, kw)
@@ -14,6 +15,8 @@ Layouts:
   BN     scale/bias/mean/var -> weight/bias/running_mean/running_var
                                 (+ num_batches_tracked = 0)
   features BatchNorm1d  -> weight = ones (frozen at 1.0, iresnet.py:119-120)
+  classification        -> weight (num_classes, dim) as it is, + bias for
+                           Softmax (`msml_tpu/tools/export_torch.py:248-253`)
 """
 
 from __future__ import annotations
@@ -144,6 +147,10 @@ def state_dict_from_jax(params: Dict, batch_stats: Dict
         _fm(e, f"frb.fm_ops.{i}", (f"fm_op{i}",))
     if _has(params, ("osb",)):
         _unet(e, "osb", ("osb",))
+    for name in ("weight", "bias"):
+        if _has(params, ("classification", name)):
+            e.out[f"classification.{name}"] = _get(
+                params, ("classification", name))
     return {k: torch.from_numpy(np.ascontiguousarray(
         v if v.dtype == np.int64 else v.astype(np.float32)))
         for k, v in e.out.items()}

@@ -30,8 +30,9 @@ ARC18_YAML = os.path.join(os.path.dirname(os.path.dirname(
 
 def random_variables(module, *args, seed=0, **kwargs):
     """Flax variables for `module` with every leaf drawn from numpy: kernels
-    lecun-normal, biases N(0, 0.05), BN scale U(0.5, 1.5), PReLU slope
-    U(0.1, 0.4), running mean N(0, 0.1) and variance U(0.5, 1.5)."""
+    lecun-normal, head weights U(-0.1, 0.1), biases N(0, 0.05), BN scale
+    U(0.5, 1.5), PReLU slope U(0.1, 0.4), running mean N(0, 0.1) and
+    variance U(0.5, 1.5)."""
     shapes = jax.eval_shape(lambda: module.init(jax.random.PRNGKey(0),
                                                 *args, **kwargs))
     rs = np.random.RandomState(seed)
@@ -41,6 +42,8 @@ def random_variables(module, *args, seed=0, **kwargs):
         if name == "kernel":
             fan_in = int(np.prod(s.shape[:-1]))
             v = rs.randn(*s.shape) / np.sqrt(fan_in)
+        elif name == "weight":
+            v = rs.uniform(-0.1, 0.1, s.shape)
         elif name in ("bias", "mean"):
             v = rs.randn(*s.shape) * (0.05 if name == "bias" else 0.1)
         elif name in ("scale", "var"):
