@@ -4,9 +4,11 @@
 
 Phases:
   1. device: the card's name and power limit, torch / CUDA / Triton versions
-     (the card must be an H100 80GB HBM3: the memory bound assumes it);
-  2. kernel: each Triton kernel against its plain PyTorch version, and its
-     time beside its memory bound:
+     (the card must be an H100 80GB HBM3: the bounds assume it); then the
+     build of the CUDA kernels (`nvcc` into msml_torch/_build/cuda): its
+     time, the `nvcc --version` line and ptxas's registers and spills;
+  2. kernel: each kernel against its plain PyTorch version, and its time
+     beside its bound:
      a. `augment_batch` at B = 512, 112 x 112 f32, over every option it
         takes (max abs diff <= 1e-5), and the exact block area;
      b. `augment_batch` on uint8 images at B = 128, the training input
@@ -15,13 +17,20 @@ Phases:
         arc18_msml at B = 128, bf16 and f32: y and dx exactly equal, dalpha
         relative L2 error <= 1e-5 (f32) or 1e-3 (bf16); times at the
         largest site beside `F.prelu` and its autograd backward;
+     d. `conv3x3_fwd` (forward, and dX on flipped weights) and `conv3x3_dw`
+        at the three C = 64 site shapes at B = 128, bf16 and f32, against
+        the plain versions in f32 on the same inputs (relative L2 error:
+        f32 forward / dX <= 1e-5, dW <= 1e-4; bf16 forward / dX <= 5e-3,
+        dW <= 1e-3), two dW runs bit-equal; bf16 times at the 112 x 112
+        site beside the bound and cuDNN (`F.conv2d`, `conv2d_input`,
+        `conv2d_weight`);
   3. model: arc18_msml (configs/arc18_msml.yaml, random weights from the
      seed) in bf16 at B = 512 against the same model in float32 (TF32 off)
      and against the float32 model on the CPU; bf16 img/s;
   4. sweep: the eval path, `occlusion_sweep_device` with the model as
      extract_fn over 1200 synthetic pairs, every occlusion ratio, 2 repeats;
      the launch counts of this path are read from this phase alone;
-  5. train: the training path, `make_train_step` on arc18_msml with
+  5. train: the training step, `make_train_step` on arc18_msml with
      webface's 10572 classes, bf16, B = 128, synthetic uint8 batches: 30
      steps on one batch must lower total_loss, every metric finite, each
      kernel launched as often per step as the model has sites; then img/s
@@ -29,7 +38,13 @@ Phases:
      kernel; then one float32 step (TF32 off) at B = 4 on the card against
      the same step on the CPU (metrics rtol 1e-3, parameter updates
      relative L2 error <= 1e-2);
-  6. a summary line, the JSON line of the kernels (with their times, bounds
+  6. cli: this slice's main path, `msml_torch.cli.train.main` on the
+     arc18_msml Config with `dataset: synthetic` (10572 classes, bf16,
+     B = 128) for 20 steps with a checkpoint every 10 into a temporary
+     folder: every logged loss finite, Speed lines logged, the checkpoints
+     written, each kernel launched as often as the steps and sites say;
+     then a `--resume` run that continues from step 20 to 24;
+  7. a summary line, the JSON line of the kernels (with their times, bounds
      and launch counts), then the final JSON line.
 
 Exits non-zero, without the final line, when CUDA is missing or any check
@@ -42,9 +57,12 @@ import argparse
 import itertools
 import json
 import math
+import os
+import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -73,6 +91,9 @@ ARC18_MSML = {
 B, H, W = 512, 112, 112
 B_TRAIN = 128           # configs/arc18_msml.yaml batch_size
 PRELU_SITES = 42        # 9 iResNet + 24 FMCnn + 9 U-Net encoder
+CONV_SITES = 8          # 64 -> 64 3x3 stride-1 convs (nn.common.Conv3x3)
+CONV_SHAPES = ((64, 112, 112), (64, 56, 56), (64, 28, 28))  # (C, H, W)
+CONV_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (5e-3, 1e-3)}
 KERNEL_TOL = 1e-5       # kernel vs plain version, max abs diff
 DALPHA_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-3}  # relative L2
 BF16_MIN_COS = 0.99     # bf16 vs f32 feature cosine
@@ -86,6 +107,7 @@ def fail(msg: str):
 
 CARD = "NVIDIA H100 80GB HBM3"
 HBM_BYTES_PER_S = 3.35e12  # the card's published memory rate
+BF16_FLOPS = 989e12        # dense bf16 tensor-core peak
 
 
 def time_ms(fn, windows: int = 5, per_window: int = 20) -> float:
@@ -119,6 +141,29 @@ def phase_device() -> str:
     print(f"[1 device] torch {torch.__version__} cuda {torch.version.cuda} "
           f"triton {triton.__version__} python {sys.version.split()[0]}")
     return smi
+
+
+def phase_build():
+    """Build the CUDA kernels (the first conv3x3 use would) and show it."""
+    from msml_torch.kernels import _nvcc, conv3x3
+
+    t0 = time.perf_counter()
+    conv3x3._lib()
+    seconds = time.perf_counter() - t0
+    info = _nvcc.builds.get("conv3x3")
+    if info is None:  # a library of the same sources and flags was there
+        print(f"[1 build] csrc/conv3x3.cu already built in "
+              f"{_nvcc.BUILD_DIR}; loaded in {seconds:.1f} s")
+        return
+    print(f"[1 build] nvcc built csrc/conv3x3.cu in {info['seconds']:.1f} s "
+          f"({seconds:.1f} s with loading); {info['nvcc']}")
+    kernel, names = None, ("fwd_bf16", "fwd_f32", "dw_bf16", "dw_f32",
+                           "dw_reduce")
+    for line in info["log"].splitlines():
+        if "Compiling entry function" in line:
+            kernel = next((k for k in names if k in line), line)
+        elif kernel and ("registers" in line or "spill" in line):
+            print(f"[1 build]   {kernel}: {line.strip()}")
 
 
 def phase_kernel(seed: int) -> dict:
@@ -333,6 +378,110 @@ def phase_kernel_prelu(seed: int):
     return entries
 
 
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    return ((a.double() - b.double()).norm() / b.double().norm()).item()
+
+
+def phase_kernel_conv(seed: int):
+    """conv3x3_fwd (forward and dX) and conv3x3_dw against the plain
+    versions at the three site shapes, then the bf16 times at 112 x 112
+    beside the bound and cuDNN."""
+    from torch.nn.grad import conv2d_input, conv2d_weight
+    import torch.nn.functional as F
+
+    from msml_torch.kernels.conv3x3 import (conv3x3_dw, conv3x3_dw_reference,
+                                            conv3x3_fwd, conv3x3_reference,
+                                            flip_weights)
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+    errs = {"fwd": 0.0, "dw": 0.0}
+    worst = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        tol_y, tol_dw = CONV_TOL[dtype]
+        for c, h, w in CONV_SHAPES:
+            x = torch.randn((B_TRAIN, c, h, w), generator=gen,
+                            device="cuda").to(dtype)
+            dy = torch.randn(x.shape, generator=gen, device="cuda").to(dtype)
+            wt = (torch.randn((c, c, 3, 3), generator=gen, device="cuda")
+                  / 24).to(dtype)
+            wf = flip_weights(wt).contiguous()
+            outs = {"fwd": (conv3x3_fwd(x, wt),
+                            conv3x3_reference(x.float(), wt.float())),
+                    "dx": (conv3x3_fwd(dy, wf),
+                           conv3x3_reference(dy.float(), wf.float())),
+                    "dw": (conv3x3_dw(x, dy),
+                           conv3x3_dw_reference(x.float(), dy.float()))}
+            again = conv3x3_dw(x, dy)
+            torch.cuda.synchronize()
+            if not torch.equal(outs["dw"][0], again):
+                fail(f"conv3x3_dw {dtype} {(c, h, w)}: two runs differ")
+            for part, (got, ref) in outs.items():
+                rel = rel_l2(got, ref)
+                tol = tol_dw if part == "dw" else tol_y
+                if not rel <= tol:
+                    fail(f"conv3x3 {part} {dtype} {(c, h, w)}: relative L2 "
+                         f"error {rel} > {tol}")
+                key = (str(dtype)[6:], part)
+                worst[key] = max(worst.get(key, 0.0), rel)
+                err = (got.float() - ref).abs().max().item()
+                slot = "dw" if part == "dw" else "fwd"
+                errs[slot] = max(errs[slot], err)
+            del x, dy, outs, again
+    print(f"[2d conv3x3] {len(CONV_SHAPES)} site shapes at B={B_TRAIN}, bf16 "
+          "and f32, against the plain versions in f32: relative L2 error "
+          + ", ".join(f"{d} {p} {v:.2e}" for (d, p), v in worst.items())
+          + "; two dW runs bit-equal")
+
+    c, h, w = CONV_SHAPES[0]
+    dtype = torch.bfloat16
+    x = torch.randn((B_TRAIN, c, h, w), generator=gen, device="cuda").to(dtype)
+    dy = torch.randn(x.shape, generator=gen, device="cuda").to(dtype)
+    wt = (torch.randn((c, c, 3, 3), generator=gen, device="cuda")
+          / 24).to(dtype)
+    wf = flip_weights(wt).contiguous()
+    flops = 2 * x.numel() * 9 * c  # per pass: 118.4 GFLOP at 112^2
+    nbytes = 2 * x.numel() * x.element_size()  # x and y, or x and dy
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
+    bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS
+                else "operations")
+    timed = {
+        "fwd": (time_ms(lambda: conv3x3_fwd(x, wt), per_window=10),
+                time_ms(lambda: conv3x3_reference(x, wt), windows=3,
+                        per_window=3),
+                time_ms(lambda: F.conv2d(x, wt, padding=1), per_window=10)),
+        "dx": (time_ms(lambda: conv3x3_fwd(dy, wf), per_window=10),
+               time_ms(lambda: conv3x3_reference(dy, wf), windows=3,
+                       per_window=3),
+               time_ms(lambda: conv2d_input(x.shape, wt, dy, padding=1),
+                       per_window=10)),
+        "dw": (time_ms(lambda: conv3x3_dw(x, dy), per_window=10),
+               time_ms(lambda: conv3x3_dw_reference(x, dy), windows=3,
+                       per_window=3),
+               time_ms(lambda: conv2d_weight(x, wt.shape, dy, padding=1),
+                       per_window=10))}
+    for part, (ms, plain_ms, lib_ms) in timed.items():
+        print(f"[2d conv3x3] bf16 {part} at {(B_TRAIN, c, h, w)}: kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, cuDNN {lib_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by}; {flops / 1e9:.1f} GFLOP,"
+              f" {nbytes / 1e6:.1f} MB) = {bound_ms / ms:.1%} of it")
+    entries = []
+    for name, part, err, line in (("conv3x3_fwd", "fwd", errs["fwd"], 109),
+                                  ("conv3x3_dw", "dw", errs["dw"], 186)):
+        ms, plain_ms, lib_ms = timed[part]
+        entry = {"name": name, "route": "cuda",
+                 "source": "msml_torch/csrc/conv3x3.cu",
+                 "replaces": f"benchmarks/negative/conv_gemm.py:{line}",
+                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": bound_ms, "bound_by": bound_by,
+                 "library_ms": lib_ms, "shape": [B_TRAIN, c, h, w],
+                 "dtype": "bfloat16"}
+        if part == "fwd":
+            entry["dx"] = dict(zip(("ms", "plain_ms", "library_ms"),
+                                   timed["dx"]), bound_ms=bound_ms)
+        entries.append(entry)
+    return entries
+
+
 def arc18_config(**over):
     from msml_torch.core.config import Config, config_init
 
@@ -437,7 +586,8 @@ def phase_sweep(seed: int, model, repeats: int = 2):
     passes = 1 + 9 * repeats
     batches = passes * 2 * math.ceil(n / 512)
     want = {"augment_batch": batches, "prelu_fwd": batches * PRELU_SITES,
-            "prelu_bwd": 0}
+            "prelu_bwd": 0, "conv3x3_fwd": batches * CONV_SITES,
+            "conv3x3_dw": 0}
     if len(rows) != 10:
         fail(f"{len(rows)} sweep rows, expected 10")
     for row in rows:
@@ -455,18 +605,29 @@ def phase_sweep(seed: int, model, repeats: int = 2):
     return launches
 
 
-def reset_launches():
-    from msml_torch.kernels import augment, prelu
+def counted():
+    from msml_torch.kernels import augment, conv3x3, prelu
 
-    for fn in (augment.augment_batch, prelu.prelu_fwd, prelu.prelu_bwd):
+    return (augment.augment_batch, prelu.prelu_fwd, prelu.prelu_bwd,
+            conv3x3.conv3x3_fwd, conv3x3.conv3x3_dw)
+
+
+def reset_launches():
+    for fn in counted():
         fn.launches = 0
 
 
 def read_launches() -> dict:
-    from msml_torch.kernels import augment, prelu
+    return {fn.__name__: fn.launches for fn in counted()}
 
-    return {fn.__name__: fn.launches for fn in (
-        augment.augment_batch, prelu.prelu_fwd, prelu.prelu_bwd)}
+
+def per_step(steps: int) -> dict:
+    """Launches of `steps` train steps: one input stage, the PReLU pair at
+    every PReLU site, forward and dX at every conv site, dW at each."""
+    return {"augment_batch": steps, "prelu_fwd": steps * PRELU_SITES,
+            "prelu_bwd": steps * PRELU_SITES,
+            "conv3x3_fwd": steps * 2 * CONV_SITES,
+            "conv3x3_dw": steps * CONV_SITES}
 
 
 def phase_train(seed: int, steps: int = 30):
@@ -488,10 +649,8 @@ def phase_train(seed: int, steps: int = 30):
     history = [step(state, batch, lr) for _ in range(steps)]
     torch.cuda.synchronize()
     launches = read_launches()
-    want = {"augment_batch": steps, "prelu_fwd": steps * PRELU_SITES,
-            "prelu_bwd": steps * PRELU_SITES}
-    if launches != want:
-        fail(f"train launches {launches}, expected {want}")
+    if launches != per_step(steps):
+        fail(f"train launches {launches}, expected {per_step(steps)}")
     for i, m in enumerate(history):
         bad = [k for k, v in m.items() if not torch.isfinite(v).item()]
         if bad:
@@ -505,7 +664,7 @@ def phase_train(seed: int, steps: int = 30):
           + ", ".join(f"{k} {v.item():.4f}" for k, v in history[-1].items()))
     print(f"[5 train] launches per step: " + ", ".join(
         f"{k} {v // steps}" for k, v in launches.items())
-        + f" ({PRELU_SITES} PReLU sites)")
+        + f" ({PRELU_SITES} PReLU sites, {CONV_SITES} conv3x3 sites)")
 
     ms = time_ms(lambda: step(state, batch, lr), windows=5, per_window=4)
     img_s = B_TRAIN / ms * 1e3
@@ -538,7 +697,9 @@ def profile_train(run_step, step_ms: float, steps: int = 4):
     print(f"[5 train] profile, {steps} steps: device busy {per_step:.2f} ms "
           f"per step = {per_step / step_ms:.1%} of the {step_ms:.2f} ms "
           f"step, {len(kernels)} kernel names")
-    groups = {"prelu (Triton)": ("_prelu_",), "augment (Triton)": (
+    groups = {"conv3x3 (CUDA)": ("fwd_bf16", "fwd_f32", "dw_bf16", "dw_f32",
+                                 "dw_reduce"),
+              "prelu (Triton)": ("_prelu_",), "augment (Triton)": (
         "_augment_kernel",), "conv / gemm": ("conv", "gemm", "xmma", "sm90",
                                              "cutlass", "implicit"),
               "batch norm": ("batch_norm", "bn_", "welford"),
@@ -607,6 +768,55 @@ def phase_train_cpu_parity(seed: int, b: int = 4):
           f"{((ug[worst] - uc[worst]).norm() / uc[worst].norm()).item():.2e})")
 
 
+def phase_cli(seed: int, steps: int = 20, resume_to: int = 24):
+    """This slice's main path: the training CLI on the card; -> (launches,
+    img/s from its last Speed line)."""
+    from msml_torch.cli.train import main, parse_args
+    from msml_torch.core.checkpoint import all_steps
+    from msml_torch.core.config import Config
+
+    def cfg(out):
+        return Config.from_dict(dict(ARC18_MSML, dataset="synthetic",
+                                     num_classes=10572, out_folder=out))
+
+    with tempfile.TemporaryDirectory() as out:
+        argv = ["--steps", str(steps), "--ckpt-every", "10", "--log-every",
+                "5", "--seed", str(seed), "--device", "cuda"]
+        reset_launches()
+        t0 = time.perf_counter()
+        state = main(parse_args(argv), cfg(out))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+        output = os.path.join(out, "arc18_msml_1")
+        with open(os.path.join(output, "training.log")) as f:
+            log = f.read()
+        losses = [float(v) for v in re.findall(r" Loss (\S+) ", log)]
+        speeds = [float(v) for v in
+                  re.findall(r"Speed (\S+) samples/sec", log)]
+        if state.step != steps or launches != per_step(steps):
+            fail(f"cli: step {state.step}, launches {launches}, expected "
+                 f"{steps} and {per_step(steps)}")
+        if not speeds or not all(math.isfinite(v) for v in losses):
+            fail(f"cli: Speed lines {speeds}, logged losses {losses}")
+        if all_steps(output) != [10, steps]:
+            fail(f"cli: checkpoints {all_steps(output)}")
+        print(f"[6 cli] {steps} steps at B={B_TRAIN}, bf16, 10572 classes in "
+              f"{seconds:.1f} s host clock (model build and 2 checkpoints "
+              f"included); Speed lines (samples/s) {speeds}; logged losses "
+              f"{[round(v, 4) for v in losses]}; checkpoints "
+              f"{all_steps(output)}; launches {launches}")
+        state = main(parse_args(argv[2:] + ["--steps", str(resume_to),
+                                            "--resume"]), cfg(out))
+        with open(os.path.join(output, "training.log")) as f:
+            resumed = f"backbone resume successfully! step={steps}" in f.read()
+        if not resumed or state.step != resume_to:
+            fail(f"cli --resume: resumed {resumed}, step {state.step}")
+        print(f"[6 cli] --resume from step {steps} ran to step {state.step}; "
+              f"checkpoints {all_steps(output)}")
+    return launches, speeds[-1]
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -615,28 +825,34 @@ def main(argv=None):
         fail("torch.cuda.is_available() is false")
 
     smi = phase_device()
+    phase_build()
     augment_entry = phase_kernel(args.seed)
     uint8 = phase_kernel_uint8(args.seed)
     prelu_entries = phase_kernel_prelu(args.seed)
+    conv_entries = phase_kernel_conv(args.seed)
     model, eval_img_s = phase_model(args.seed)
     sweep_launches = phase_sweep(args.seed, model)
     del model
     train_launches, train_img_s = phase_train(args.seed)
     phase_train_cpu_parity(args.seed)
+    cli_launches, cli_img_s = phase_cli(args.seed)
 
-    # this slice's path is the train step: its launches, and the uint8
-    # input stage's times at B = 128; the eval path's kept beside them
+    # this slice's path is the training CLI: its launches; the uint8 input
+    # stage's times at B = 128, and the eval and train-step paths' launches
+    # kept beside them
     augment_entry["sweep"] = {k: augment_entry.pop(k) for k in (
         "ms", "plain_ms", "bound_ms")}
-    augment_entry["sweep"]["launches"] = sweep_launches["augment_batch"]
-    augment_entry.update(uint8, launches=train_launches["augment_batch"])
+    augment_entry.update(uint8)
     augment_entry["max_abs_err"] = max(augment_entry["max_abs_err"],
                                        uint8["max_abs_err"])
-    entries = [augment_entry] + prelu_entries
-    for e in prelu_entries:
-        e["launches"] = train_launches[e["name"]]
-    print(f"[6 summary] {smi}: train step {train_img_s:.1f} img/s bf16 at "
-          f"B={B_TRAIN}; eval forward {eval_img_s:.1f} img/s at B={B}; "
+    entries = [augment_entry] + prelu_entries + conv_entries
+    for e in entries:
+        e["launches"] = cli_launches[e["name"]]
+        e["launches_sweep"] = sweep_launches[e["name"]]
+        e["launches_train_step"] = train_launches[e["name"]]
+    print(f"[7 summary] {smi}: CLI {cli_img_s:.1f} img/s (last Speed line); "
+          f"train step {train_img_s:.1f} img/s bf16 at B={B_TRAIN}; eval "
+          f"forward {eval_img_s:.1f} img/s at B={B}; "
           + "; ".join(f"{e['name']} {e['ms']:.4f} ms (bound "
                       f"{e['bound_ms']:.4f} ms)" for e in entries))
     print(json.dumps({"kernels": entries}))

@@ -4,11 +4,14 @@ Counterpart of `msml_tpu/core/config.py` (reference `config.py:13-137`): the
 user YAML holds dataset / recipe / model / experiment keys; `config_init`
 derives per-dataset class counts, epoch schedules, model defaults and the
 output directory `out/{prefix}_{exp_id}`. `yaml` is imported only by
-`load_yaml`, so a config built with `Config.from_dict` needs no PyYAML.
+`load_yaml`, so a config built with `Config.from_dict` needs no PyYAML, and
+`save_yaml` writes JSON, which is YAML too (PyYAML's `safe_load` and
+`load_yaml` read it back unchanged).
 """
 
 from __future__ import annotations
 
+import json
 import os
 from typing import Any
 
@@ -39,12 +42,42 @@ class Config(dict):
 
 
 def load_yaml(file_name: str) -> Config:
-    """YAML -> Config (reference `config.py:132-137`)."""
-    import yaml
-
+    """YAML -> Config (reference `config.py:132-137`). A file that
+    `save_yaml` wrote is JSON and is read without PyYAML."""
     with open(file_name) as f:
-        loaded = yaml.safe_load(f)
+        text = f.read()
+    try:
+        loaded = json.loads(text)
+    except ValueError:
+        import yaml
+
+        loaded = yaml.safe_load(text)
     return Config.from_dict(loaded)
+
+
+def default_config() -> Config:
+    """A complete training config with the reference's config.yaml defaults
+    (reference `config.yaml:1-36`), used when no YAML is supplied."""
+    return Config.from_dict({
+        "dataset": "ms1m-retinaface-t2",
+        "fp16": True,  # selects bf16 compute (see core/precision.py)
+        "batch_size": 256,
+        "frb_type": "iresnet18",
+        "osb_type": "unet",
+        "use_osb": True,
+        "fm_layers": [1, 1, 1, 1],
+        "fm_params": [3, 2, "sigmoid", "mul"],
+        "peer_params": {
+            "use_ori": True,
+            "use_conv": True,
+            "mask_trans": "conv",
+            "use_decoder": True,
+        },
+        "header_type": "AMArcFace",
+        "header_params": [64.0, 0.48, 0.0, 0.0],
+        "exp_id": 1,
+        "output_prefix": "arc18_msml",
+    })
 
 
 def config_init(cfg: Config, make_output_dir: bool = True) -> Config:
@@ -101,13 +134,15 @@ def _config_dataset(cfg: Config) -> None:
         cfg.setdefault("decay_epochs", [10, 18, 22])
         cfg.setdefault("decay_scale", 0.1)
     elif cfg.dataset == "synthetic":
-        # smoke dataset: random images + labels
+        # smoke dataset: random images + labels. Unlike the JAX package it
+        # keeps a user's val_targets, so that a smoke run can verify on
+        # real `{rec}/{target}.bin` pairs
         cfg.setdefault("rec", "")
         cfg.nw = 0
         cfg.setdefault("num_classes", 1000)
         cfg.setdefault("num_epoch", 1)
         cfg.warmup_epoch = -1
-        cfg.val_targets = []
+        cfg.setdefault("val_targets", [])
         cfg.decay_epochs = [1]
         cfg.decay_scale = 0.1
     else:
@@ -169,3 +204,35 @@ def _config_exp(cfg: Config, make_output_dir: bool) -> None:
     cfg.output = os.path.join(out_folder, f"{cfg.output_prefix}_{cfg.exp_id}")
     if make_output_dir:
         os.makedirs(cfg.output, exist_ok=True)
+
+
+USER_KEYS = ("dataset", "fp16", "batch_size", "frb_type", "osb_type",
+             "use_osb", "fm_layers", "fm_params", "peer_params",
+             "header_type", "header_params", "exp_id", "output_prefix",
+             "num_classes", "num_epoch", "sample_rate", "use_partial_fc",
+             "remat", "kd_metric", "kd_loss_weight", "decoder_loss_weight",
+             "rec", "scan_unroll",
+             "out_folder", "dropout", "pretrained_backbone", "peer_weights")
+"""The user-level config surface (reference config.yaml keys + the JAX
+package's extensions); what gets persisted next to weights."""
+
+
+def user_config_dict(cfg: Config) -> dict:
+    def plain(v):
+        if isinstance(v, tuple):
+            return list(v)
+        if isinstance(v, dict):
+            return {k: plain(x) for k, x in v.items()}
+        return v
+    return {k: plain(cfg[k]) for k in USER_KEYS if k in cfg}
+
+
+def save_yaml(cfg_raw: dict, path: str) -> None:
+    """Persist the user-level config next to weights (reference
+    train.py:71-72), as JSON text: a YAML document that needs no PyYAML to
+    write."""
+    with open(path, "w") as f:
+        json.dump({k: (list(v) if isinstance(v, tuple) else v)
+                   for k, v in cfg_raw.items() if not callable(v)}, f,
+                  indent=2, sort_keys=True)
+        f.write("\n")

@@ -9,11 +9,15 @@ The port's own numpy copy of `msml_tpu/eval/verification.py`. Parity target
     (verification.py:125-163)
   * evaluate — thresholds 0:4:0.01 for ROC, 0:4:0.001 for VAL@FAR=1e-3
     (verification.py:181-199)
+  * test() — batched embedding extraction with orig + flip sum, the
+    overlapping tail window (`_data = data[bb - batch_size: bb]`,
+    verification.py:262, kept for parity), l2 normalize, xnorm
+    (verification.py:238-305)
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Callable, List, Sequence
 
 import numpy as np
 
@@ -149,3 +153,55 @@ def evaluate(embeddings: np.ndarray, actual_issame: Sequence[bool],
 def l2_normalize_np(x: np.ndarray) -> np.ndarray:
     """sklearn.preprocessing.normalize parity."""
     return x / np.maximum(np.linalg.norm(x, axis=1, keepdims=True), 1e-12)
+
+
+def extract_embeddings(data_list: List[np.ndarray],
+                       extract_fn: Callable[[np.ndarray], np.ndarray],
+                       batch_size: int, is_gray: bool = False,
+                       use_norm: bool = True) -> List[np.ndarray]:
+    """Batched extraction with the reference's overlapping-tail-window idiom
+    (verification.py:259-281). data_list: [orig, flipped] arrays
+    (N, H, W, 3) in [0, 255]; extract_fn takes normalized float32 NHWC
+    numpy batches and returns (batch, D) embeddings."""
+    batch_size = min(batch_size, data_list[0].shape[0])  # tiny-set safety
+    embeddings_list = []
+    for data in data_list:
+        if is_gray:
+            gray = (0.2989 * data[..., 0] + 0.5870 * data[..., 1]
+                    + 0.1140 * data[..., 2]) / 3.0  # verification.py:250-254
+            data = gray[..., None]
+        embeddings = None
+        ba = 0
+        n = data.shape[0]
+        while ba < n:
+            bb = min(ba + batch_size, n)
+            count = bb - ba
+            _data = data[bb - batch_size: bb]  # overlapping tail (quirk)
+            if not is_gray and use_norm:
+                img = ((_data / 255.0) - 0.5) / 0.5
+            else:
+                img = _data / 255.0
+            _emb = np.asarray(extract_fn(img.astype(np.float32)))
+            if embeddings is None:
+                embeddings = np.zeros((n, _emb.shape[1]))
+            embeddings[ba:bb, :] = _emb[(batch_size - count):, :]
+            ba = bb
+        embeddings_list.append(embeddings)
+    return embeddings_list
+
+
+def test(data_list: List[np.ndarray], issame_list: Sequence[bool],
+         extract_fn: Callable[[np.ndarray], np.ndarray], batch_size: int,
+         nfolds: int = 10, is_gray: bool = False, use_norm: bool = True):
+    """verification.py:238-305: flip-sum features -> normalize -> evaluate.
+    Returns (acc2, std2, xnorm, embeddings_list)."""
+    embeddings_list = extract_embeddings(data_list, extract_fn, batch_size,
+                                         is_gray, use_norm)
+    _xnorm = float(np.mean([np.linalg.norm(e, axis=1).mean()
+                            for e in embeddings_list]))
+    embeddings = embeddings_list[0] + embeddings_list[1]
+    embeddings = l2_normalize_np(embeddings)
+    _, _, accuracy, val, val_std, far = evaluate(embeddings, issame_list,
+                                                 nrof_folds=nfolds)
+    return float(np.mean(accuracy)), float(np.std(accuracy)), _xnorm, \
+        embeddings_list

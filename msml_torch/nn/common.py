@@ -4,8 +4,9 @@ Counterpart of `msml_tpu/nn/common.py`. Convolutions use torch's symmetric
 padding (`backbones/frb/iresnet.py:17-35`, `backbones/osb/unet.py:41-59`);
 BatchNorm uses eps 1e-5 and momentum 0.1 and updates its running variance
 as flax does; PReLU is per channel with init 0.25 and runs the Triton
-kernels of `kernels/prelu.py`. Parameter names are the reference's torch
-names.
+kernels of `kernels/prelu.py`; the 64 -> 64 3x3 stride-1 convs run the
+CUDA kernels of `kernels/conv3x3.py`. Parameter names are the reference's
+torch names.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from msml_torch.heads.margin import MarginHead, SoftmaxHead
+from msml_torch.kernels import conv3x3 as conv3x3_kernels
 from msml_torch.kernels.prelu import prelu
 
 
@@ -36,10 +38,43 @@ class PReLU(nn.Module):
         return prelu(x, self.weight)
 
 
+class Conv3x3(nn.Conv2d):
+    """3x3 conv with padding 1 that runs `kernels.conv3x3` where the kernel
+    applies: 64 channels in and out, stride 1, no bias (`routed`). Every
+    other configuration is `nn.Conv2d`'s own forward.
+
+    Under autocast the routed forward casts x and the weight to the
+    autocast dtype, as `F.conv2d` would there, and runs the Function with
+    autocast off; the weight's gradient comes back in its own dtype."""
+
+    def __init__(self, in_planes: int, out_planes: int, stride: int = 1,
+                 bias: bool = False):
+        super().__init__(in_planes, out_planes, 3, stride, 1, bias=bias)
+        self.routed = (in_planes == out_planes == conv3x3_kernels.C
+                       and stride == 1 and not bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.routed:
+            return super().forward(x)
+        w = self.weight
+        dev = x.device.type
+        if torch.is_autocast_enabled(dev):
+            dtype = torch.get_autocast_dtype(dev)
+            x, w = x.to(dtype), w.to(dtype)
+        with torch.autocast(dev, enabled=False):
+            return conv3x3_kernels.conv3x3(x, w)
+
+
 def conv3x3(in_planes: int, out_planes: int, stride: int = 1,
-            bias: bool = False) -> nn.Conv2d:
+            bias: bool = False) -> Conv3x3:
     """3x3 conv, torch padding=1 (`iresnet.py:17-26`)."""
-    return nn.Conv2d(in_planes, out_planes, 3, stride, 1, bias=bias)
+    return Conv3x3(in_planes, out_planes, stride, bias)
+
+
+def routed_conv_sites(model: nn.Module):
+    """Names of the modules of `model` that run the conv3x3 kernels."""
+    return [name for name, m in model.named_modules()
+            if isinstance(m, Conv3x3) and m.routed]
 
 
 def conv1x1(in_planes: int, out_planes: int, stride: int = 1) -> nn.Conv2d:

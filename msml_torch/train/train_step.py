@@ -13,6 +13,7 @@ nothing). One step:
      + kd_loss_weight kd (:310-311);
   4. backward, the global-norm clip and the SGD step (:353-361).
 Metrics are those of :381-383, as 0-d tensors on the device.
+`make_eval_step` is the feature extraction of the verification callback.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from msml_torch import resolve_device
@@ -104,3 +106,26 @@ def make_train_step(cfg) -> Callable[..., Dict[str, torch.Tensor]]:
                 "nll": cls_loss.detach(), "grad_norm": grad_norm}
 
     return step
+
+
+def make_eval_step(model: torch.nn.Module) -> Callable[[np.ndarray],
+                                                        np.ndarray]:
+    """-> extract(img): (B, H, W, C) normalized float32 numpy (NHWC, as
+    `eval.verification.test` gives it) -> (B, dim_feature) float32 numpy
+    features of the eval forward (`msml_tpu/train/train_step.py::
+    make_eval_step`). The model runs in eval mode under no_grad and goes
+    back to the mode it was in."""
+
+    def extract(img: np.ndarray) -> np.ndarray:
+        dev = next(model.parameters()).device
+        was_training = model.training
+        model.eval()
+        try:
+            with torch.no_grad():
+                x = torch.as_tensor(img, device=dev).permute(0, 3, 1, 2)
+                feature, _ = model(x.contiguous())
+        finally:
+            model.train(was_training)
+        return feature.float().cpu().numpy()
+
+    return extract

@@ -1,6 +1,8 @@
-"""The port's Triton kernels on the card against their plain versions.
+"""The port's kernels (Triton and CUDA C++) on the card against their plain
+versions.
 
-Marked `cuda`: these need an NVIDIA GPU with Triton and skip elsewhere. Run
+Marked `cuda`: these need an NVIDIA GPU with Triton and nvcc and skip
+elsewhere. Run
 them on the card with
 `python -m pytest tests/test_torch_cuda.py -m cuda --noconftest`
 (tests/conftest.py imports jax, which a GPU-only environment may lack).
@@ -17,8 +19,8 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the Triton kernels have no CPU "
-                    "mode)")
+        pytest.skip("needs a CUDA device (the Triton and CUDA kernels have "
+                    "no CPU mode)")
     return torch.device("cuda")
 
 
@@ -136,3 +138,95 @@ def test_prelu_autograd_under_autocast(cuda):
         grads.append(m.weight.grad.clone())
     assert grads[0].dtype == torch.float32
     assert ((grads[0] - grads[1]).norm() / grads[1].norm()).item() <= 2e-2
+
+
+CONV_SHAPES = [(4, 112, 112), (4, 56, 56), (4, 28, 28), (3, 13, 17),
+               (2, 5, 130)]
+
+
+def _rel(a, b):
+    return ((a.double() - b.double()).norm() / b.double().norm()).item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", CONV_SHAPES)
+def test_conv3x3_kernels_match_plain(cuda, dtype, shape):
+    """Forward, dX (the forward on flipped weights) and dW against the
+    plain versions in f32 on the same inputs. Relative L2 error: f32
+    forward and dX <= 1e-5, dW <= 1e-4 (sums in another order); bf16
+    forward and dX <= 5e-3 (one rounding of the output), dW <= 1e-3."""
+    from msml_torch.kernels.conv3x3 import (conv3x3_dw, conv3x3_dw_reference,
+                                            conv3x3_fwd, conv3x3_reference,
+                                            flip_weights)
+
+    n, h, w = shape
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn((n, 64, h, w), generator=gen, device=cuda).to(dtype)
+    dy = torch.randn((n, 64, h, w), generator=gen, device=cuda).to(dtype)
+    wt = (torch.randn((64, 64, 3, 3), generator=gen, device=cuda)
+          / 24).to(dtype)
+    wf = flip_weights(wt).contiguous()
+    f0, d0 = conv3x3_fwd.launches, conv3x3_dw.launches
+    y, dx, dw = conv3x3_fwd(x, wt), conv3x3_fwd(dy, wf), conv3x3_dw(x, dy)
+    torch.cuda.synchronize()
+    assert (conv3x3_fwd.launches, conv3x3_dw.launches) == (f0 + 2, d0 + 1)
+    assert y.dtype == dx.dtype == dtype and dw.dtype == torch.float32
+    f32 = dtype == torch.float32
+    assert _rel(y, conv3x3_reference(x.float(), wt.float())) <= (
+        1e-5 if f32 else 5e-3)
+    assert _rel(dx, conv3x3_reference(dy.float(), wf.float())) <= (
+        1e-5 if f32 else 5e-3)
+    assert _rel(dw, conv3x3_dw_reference(x.float(), dy.float())) <= (
+        1e-4 if f32 else 1e-3)
+    assert torch.equal(dw, conv3x3_dw(x, dy))  # no atomics: same bits
+
+
+def test_conv3x3_autograd_under_autocast(cuda):
+    """A routed Conv3x3 under bf16 autocast: bf16 output and dX, f32 weight
+    gradient; against F.conv2d under the same autocast (cuDNN), relative L2
+    error <= 1e-2 (both round to bf16 at other places)."""
+    import torch.nn.functional as F
+
+    from msml_torch.kernels.conv3x3 import conv3x3_dw, conv3x3_fwd
+    from msml_torch.nn.common import conv3x3
+
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    conv = conv3x3(64, 64).to(cuda)
+    assert conv.routed
+    with torch.no_grad():
+        conv.weight.copy_(torch.randn(conv.weight.shape, generator=gen,
+                                      device=cuda) / 24)
+    x = torch.randn((4, 64, 28, 28), generator=gen, device=cuda)
+    g = torch.randn((4, 64, 28, 28), generator=gen, device=cuda)
+    outs = []
+    for fn in (conv, lambda v: F.conv2d(v, conv.weight, padding=1)):
+        conv.weight.grad = None
+        xr = x.clone().requires_grad_()
+        f0, d0 = conv3x3_fwd.launches, conv3x3_dw.launches
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            y = fn(xr)
+        assert y.dtype == torch.bfloat16
+        y.float().backward(g)
+        outs.append((y, xr.grad, conv.weight.grad.clone(),
+                     conv3x3_fwd.launches - f0, conv3x3_dw.launches - d0))
+    (y, dx, dw, nf, nd), (y_ref, dx_ref, dw_ref, nf_ref, nd_ref) = outs
+    assert (nf, nd, nf_ref, nd_ref) == (2, 1, 0, 0)
+    assert dw.dtype == torch.float32
+    assert _rel(y, y_ref) <= 1e-2
+    assert _rel(dx, dx_ref) <= 1e-2
+    assert _rel(dw, dw_ref) <= 1e-2
+
+
+def test_conv3x3_kernel_refuses_what_it_does_not_take(cuda):
+    from msml_torch.kernels.conv3x3 import conv3x3_fwd
+
+    w = torch.zeros((32, 32, 3, 3), device=cuda)
+    with pytest.raises(ValueError, match="64 channels"):
+        conv3x3_fwd(torch.zeros((1, 32, 8, 8), device=cuda), w)
+    w = torch.zeros((64, 64, 3, 3), device=cuda)
+    x = torch.zeros((1, 64, 8, 16), device=cuda)[..., ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        conv3x3_fwd(x, w)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        conv3x3_fwd(torch.zeros((1, 64, 8, 8), device=cuda,
+                                dtype=torch.float16), w.half())
