@@ -21,9 +21,10 @@ Phases:
         at the three C = 64 site shapes at B = 128, bf16 and f32, against
         the plain versions in f32 on the same inputs (relative L2 error:
         f32 forward / dX <= 1e-5, dW <= 1e-4; bf16 forward / dX <= 5e-3,
-        dW <= 1e-3), two dW runs bit-equal; bf16 times at the 112 x 112
-        site beside the bound and cuDNN (`F.conv2d`, `conv2d_input`,
-        `conv2d_weight`);
+        dW <= 1e-3), two dW runs bit-equal; the bf16 dW also at odd and
+        wide shapes (W = 17, 28 with odd H, 57, 113, 200); bf16 times at
+        the 112 x 112 site beside the bound and cuDNN (`F.conv2d`,
+        `conv2d_input`, `conv2d_weight`), and the bf16 dW at every site;
   3. model: arc18_msml (configs/arc18_msml.yaml, random weights from the
      seed) in bf16 at B = 512 against the same model in float32 (TF32 off)
      and against the float32 model on the CPU; bf16 img/s;
@@ -43,7 +44,10 @@ Phases:
      B = 128) for 20 steps with a checkpoint every 10 into a temporary
      folder: every logged loss finite, Speed lines logged, the checkpoints
      written, each kernel launched as often as the steps and sites say;
-     then a `--resume` run that continues from step 20 to 24;
+     then a `--resume` run that continues from step 20 to 24; then the
+     sweep on the folder it wrote: `load_weight_folder` gives the trained
+     model's eval features, and `msml_torch.cli.test --device-sweep` runs
+     on it over a `.bin` of 40 synthetic PPM pairs;
   7. a summary line, the JSON line of the kernels (with their times, bounds
      and launch counts), then the final JSON line.
 
@@ -94,6 +98,8 @@ PRELU_SITES = 42        # 9 iResNet + 24 FMCnn + 9 U-Net encoder
 CONV_SITES = 8          # 64 -> 64 3x3 stride-1 convs (nn.common.Conv3x3)
 CONV_SHAPES = ((64, 112, 112), (64, 56, 56), (64, 28, 28))  # (C, H, W)
 CONV_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (5e-3, 1e-3)}
+DW_ODD_SHAPES = ((4, 9, 17), (4, 27, 28), (4, 7, 57), (2, 5, 113),
+                 (2, 4, 200))  # (N, H, W) of the extra bf16 dW checks
 KERNEL_TOL = 1e-5       # kernel vs plain version, max abs diff
 DALPHA_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-3}  # relative L2
 BF16_MIN_COS = 0.99     # bf16 vs f32 feature cosine
@@ -157,13 +163,20 @@ def phase_build():
         return
     print(f"[1 build] nvcc built csrc/conv3x3.cu in {info['seconds']:.1f} s "
           f"({seconds:.1f} s with loading); {info['nvcc']}")
-    kernel, names = None, ("fwd_bf16", "fwd_f32", "dw_bf16", "dw_f32",
-                           "dw_reduce")
+    kernel, spills = None, []
     for line in info["log"].splitlines():
         if "Compiling entry function" in line:
-            kernel = next((k for k in names if k in line), line)
+            m = re.search(r"(fwd_bf16|fwd_f32|dw_bf16|dw_f32|dw_reduce)"
+                          r"(?:ILi(\d+)E)?", line)
+            kernel = (m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+                      if m else line)
         elif kernel and ("registers" in line or "spill" in line):
             print(f"[1 build]   {kernel}: {line.strip()}")
+            if kernel.startswith("dw_bf16") and re.search(
+                    r"[1-9]\d* bytes spill", line):
+                spills.append(kernel)
+    if spills:
+        fail(f"{sorted(set(spills))} spill registers")
 
 
 def phase_kernel(seed: int) -> dict:
@@ -431,6 +444,23 @@ def phase_kernel_conv(seed: int):
           "and f32, against the plain versions in f32: relative L2 error "
           + ", ".join(f"{d} {p} {v:.2e}" for (d, p), v in worst.items())
           + "; two dW runs bit-equal")
+    odd = []
+    for n, h, w in DW_ODD_SHAPES:
+        x = torch.randn((n, 64, h, w), generator=gen,
+                        device="cuda").bfloat16()
+        dy = torch.randn(x.shape, generator=gen, device="cuda").bfloat16()
+        got, again = conv3x3_dw(x, dy), conv3x3_dw(x, dy)
+        ref = conv3x3_dw_reference(x.float(), dy.float())
+        torch.cuda.synchronize()
+        rel = rel_l2(got, ref)
+        if not (rel <= CONV_TOL[torch.bfloat16][1]
+                and torch.equal(got, again)):
+            fail(f"conv3x3_dw bf16 {(n, h, w)}: relative L2 error {rel}, "
+                 f"two runs equal {torch.equal(got, again)}")
+        errs["dw"] = max(errs["dw"], (got - ref).abs().max().item())
+        odd.append(f"{(n, h, w)} {rel:.2e}")
+    print("[2d conv3x3] bf16 dW at odd and wide shapes, relative L2 error: "
+          + ", ".join(odd) + "; two runs bit-equal at each")
 
     c, h, w = CONV_SHAPES[0]
     dtype = torch.bfloat16
@@ -464,6 +494,15 @@ def phase_kernel_conv(seed: int):
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms, cuDNN {lib_ms:.4f} ms, "
               f"bound {bound_ms:.4f} ms ({bound_by}; {flops / 1e9:.1f} GFLOP,"
               f" {nbytes / 1e6:.1f} MB) = {bound_ms / ms:.1%} of it")
+    for c2, h2, w2 in CONV_SHAPES[1:]:
+        x2 = torch.randn((B_TRAIN, c2, h2, w2), generator=gen,
+                         device="cuda").to(dtype)
+        dy2 = torch.randn(x2.shape, generator=gen, device="cuda").to(dtype)
+        ms = time_ms(lambda: conv3x3_dw(x2, dy2), per_window=10)
+        lib_ms = time_ms(lambda: conv2d_weight(x2, wt.shape, dy2, padding=1),
+                         per_window=10)
+        print(f"[2d conv3x3] bf16 dw at {(B_TRAIN, c2, h2, w2)}: kernel "
+              f"{ms:.4f} ms, cuDNN {lib_ms:.4f} ms")
     entries = []
     for name, part, err, line in (("conv3x3_fwd", "fwd", errs["fwd"], 109),
                                   ("conv3x3_dw", "dw", errs["dw"], 186)):
@@ -814,7 +853,53 @@ def phase_cli(seed: int, steps: int = 20, resume_to: int = 24):
             fail(f"cli --resume: resumed {resumed}, step {state.step}")
         print(f"[6 cli] --resume from step {steps} ran to step {state.step}; "
               f"checkpoints {all_steps(output)}")
-    return launches, speeds[-1]
+        sweep_launches = cli_sweep(seed, state, output, out)
+    return launches, speeds[-1], sweep_launches
+
+
+def cli_sweep(seed: int, state, folder: str, scratch: str, pairs: int = 40):
+    """The train-then-sweep round trip on the folder the training CLI
+    wrote; -> the sweep's launch counts."""
+    import pickle
+
+    from msml_torch.cli import test as cli_test
+    from msml_torch.core.weight_folder import load_weight_folder, weights_path
+    from msml_torch.data.bin_loader import ppm_encode
+
+    _, model = load_weight_folder(folder, device="cuda")
+    x = torch.rand((16, 3, H, W), generator=torch.Generator(
+        device="cuda").manual_seed(seed), device="cuda")
+    state.model.eval()
+    with torch.inference_mode():
+        got, want = model(x)[0], state.model(x)[0]
+    cos = cosines(got, want).min().item()
+    if not cos >= CPU_MIN_COS:
+        fail(f"cli sweep: loaded vs trained feature cosine {cos}")
+    data, issame = synthetic_pairs(seed, pairs)
+    bin_path = os.path.join(scratch, "pairs.bin")
+    with open(bin_path, "wb") as f:
+        pickle.dump(([ppm_encode(a.astype(np.uint8)) for a in data[0]],
+                     issame), f)
+    reset_launches()
+    rows = cli_test.main(cli_test.parse_args(
+        ["--device-sweep", "--weight_folder", folder, "--bin", bin_path,
+         "--device", "cuda"]))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    batches = (1 + 9 * 10) * 2  # 10 repeats at 9 ratios, 2 flips
+    want_launches = {"augment_batch": batches,
+                     "prelu_fwd": batches * PRELU_SITES, "prelu_bwd": 0,
+                     "conv3x3_fwd": batches * CONV_SITES, "conv3x3_dw": 0}
+    if len(rows) != 10 or launches != want_launches or not all(
+            math.isfinite(r["avg_acc"]) for r in rows):
+        fail(f"cli sweep: {len(rows)} rows, launches {launches}")
+    print(f"[6 cli] cli.test --device-sweep on the trained folder "
+          f"({os.path.relpath(weights_path(folder), folder)}), {pairs} PPM "
+          f"pairs: loaded vs trained features min cosine {cos:.8f} "
+          f"(max abs diff {(got - want).abs().max().item():.3g}); avg_acc "
+          + ", ".join(f"{r['lo']}%: {r['avg_acc']:.4f}" for r in rows)
+          + f"; launches {launches}")
+    return launches
 
 
 def main(argv=None):
@@ -835,7 +920,7 @@ def main(argv=None):
     del model
     train_launches, train_img_s = phase_train(args.seed)
     phase_train_cpu_parity(args.seed)
-    cli_launches, cli_img_s = phase_cli(args.seed)
+    cli_launches, cli_img_s, cli_sweep_launches = phase_cli(args.seed)
 
     # this slice's path is the training CLI: its launches; the uint8 input
     # stage's times at B = 128, and the eval and train-step paths' launches
@@ -850,6 +935,7 @@ def main(argv=None):
         e["launches"] = cli_launches[e["name"]]
         e["launches_sweep"] = sweep_launches[e["name"]]
         e["launches_train_step"] = train_launches[e["name"]]
+        e["launches_cli_sweep"] = cli_sweep_launches[e["name"]]
     print(f"[7 summary] {smi}: CLI {cli_img_s:.1f} img/s (last Speed line); "
           f"train step {train_img_s:.1f} img/s bf16 at B={B_TRAIN}; eval "
           f"forward {eval_img_s:.1f} img/s at B={B}; "

@@ -6,8 +6,10 @@ Counterpart of `msml_tpu/cli/test.py`'s `--device-sweep` path (reference
     python -m msml_torch.cli.test --device-sweep --weight_folder out/arc18_1 \
         --dataset lfw --fill_type black [--no-occ] [--device cpu]
 
-Loads `config.yaml` and `backbone.pth` from the weight folder, loads
-`{rec}/{dataset}.bin` (or `--bin`), and runs the protocol-BB sweep with
+Loads `config.yaml` and the weights from the weight folder (the latest
+checkpoint that `msml_torch.cli.train` wrote there, or else `backbone.pth`:
+`core/weight_folder.py`), loads `{rec}/{dataset}.bin` (or `--bin`), and
+runs the protocol-BB sweep with
 block occlusion + normalize fused in the port's kernel. Runs on `cuda`
 unless `--device cpu` is given. The host sweep, protocol NB, `--vis`,
 `--quant` and the baseline networks are not ported yet.
@@ -70,7 +72,8 @@ def parse_args(argv=None):
     p.add_argument("--dataset", type=str, default="lfw",
                    help="lfw, cfp_fp, agedb_30")
     p.add_argument("--weight_folder", type=str, default="",
-                   help="folder with config.yaml and backbone.pth")
+                   help="folder with config.yaml and the checkpoints of "
+                        "a training run, or backbone.pth")
     p.add_argument("--fill_type", type=str, default="black",
                    choices=["black", "white", "gauss"])
     p.add_argument("--no-occ", action="store_true")

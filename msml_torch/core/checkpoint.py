@@ -27,6 +27,10 @@ def _dir(output_dir: str) -> str:
     return os.path.join(output_dir, "ckpt")
 
 
+def checkpoint_path(output_dir: str, step) -> str:
+    return os.path.join(_dir(output_dir), f"{step}.pt")
+
+
 def all_steps(output_dir: str) -> List[int]:
     path = _dir(output_dir)
     if not os.path.isdir(path):
@@ -46,7 +50,7 @@ def save_checkpoint(output_dir: str, state, step: int) -> bool:
     if step in all_steps(output_dir):
         return False
     os.makedirs(_dir(output_dir), exist_ok=True)
-    path = os.path.join(_dir(output_dir), f"{step}.pt")
+    path = checkpoint_path(output_dir, step)
     tmp = f"{path}.{os.getpid()}.tmp"
     torch.save({"model": state.model.state_dict(),
                 "optimizer": state.optimizer.state_dict(),
@@ -54,7 +58,7 @@ def save_checkpoint(output_dir: str, state, step: int) -> bool:
                 "generator": state.generator.get_state()}, tmp)
     os.replace(tmp, path)
     for old in all_steps(output_dir)[:-MAX_TO_KEEP]:
-        os.remove(os.path.join(_dir(output_dir), f"{old}.pt"))
+        os.remove(checkpoint_path(output_dir, old))
     return True
 
 
@@ -65,8 +69,8 @@ def restore_checkpoint(output_dir: str, state, step: Optional[int] = None):
         step = latest_step(output_dir)
     if step is None:
         return None
-    saved = torch.load(os.path.join(_dir(output_dir), f"{step}.pt"),
-                       map_location="cpu", weights_only=True)
+    saved = torch.load(checkpoint_path(output_dir, step), map_location="cpu",
+                       weights_only=True)
     state.model.load_state_dict(saved["model"], strict=True)
     state.optimizer.load_state_dict(saved["optimizer"])
     state.generator.set_state(saved["generator"])

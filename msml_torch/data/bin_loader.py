@@ -4,7 +4,9 @@ The port's own copy of `msml_tpu/data/bin_loader.py::load_bin` and
 `msml_tpu/data/recordio.py::imdecode`. Parity target
 `eval/verification.py:201-236`: a pickled (bins, issame_list) pair where
 bins are encoded JPEGs; each image is decoded to (H, W, 3) RGB and a
-horizontally flipped copy is produced. `cv2` is imported only to decode.
+horizontally flipped copy is produced. `cv2` is imported only to decode
+JPEG or PNG; binary PPM images (`P6`, as `ppm_encode` writes them) decode
+without it, for machines that have no OpenCV.
 """
 
 from __future__ import annotations
@@ -15,8 +17,39 @@ from typing import List, Tuple
 import numpy as np
 
 
+def ppm_encode(img_rgb: np.ndarray) -> bytes:
+    """(H, W, 3) uint8 RGB -> a binary PPM (`P6`, maxval 255)."""
+    h, w = img_rgb.shape[:2]
+    return b"P6\n%d %d\n255\n" % (w, h) + np.ascontiguousarray(
+        img_rgb, np.uint8).tobytes()
+
+
+def _ppm_decode(buf: bytes) -> np.ndarray:
+    """A binary PPM with maxval 255 -> (H, W, 3) uint8 RGB."""
+    fields, pos = [], 2
+    while len(fields) < 3:
+        while buf[pos:pos + 1].isspace() or buf[pos:pos + 1] == b"#":
+            if buf[pos:pos + 1] == b"#":
+                pos = buf.index(b"\n", pos)
+            pos += 1
+        end = pos
+        while buf[end:end + 1].isdigit():
+            end += 1
+        fields.append(int(buf[pos:end]))
+        pos = end
+    w, h, maxval = fields
+    if maxval != 255:
+        raise ValueError(f"PPM maxval {maxval}: only 255 is read")
+    data = np.frombuffer(buf, np.uint8, 3 * w * h, pos + 1)
+    return data.reshape(h, w, 3)
+
+
 def imdecode(buf: bytes, to_rgb: bool = True) -> np.ndarray:
-    """mx.image.imdecode parity via cv2 (same OpenCV jpeg path)."""
+    """mx.image.imdecode parity via cv2 (same OpenCV jpeg path); a binary
+    PPM is decoded here, to the same array."""
+    if buf[:2] == b"P6":
+        img = _ppm_decode(buf)
+        return img if to_rgb else img[:, :, ::-1]
     import cv2
 
     img = cv2.imdecode(np.frombuffer(buf, np.uint8), cv2.IMREAD_COLOR)

@@ -38,13 +38,22 @@ Design (simple first, see PERF.md for its times):
   copies the weights (packed (ky, kx, Co, Ci) by the wrapper) with
   `cp.async` while the input rows load.
 - dW: dW[co, ci, ky, kx] = sum over n, h, w of dy[n, co, h, w] *
-  x[n, ci, h + ky - 1, w + kx - 1], a GEMM with K = N H W pixels. The TPU
-  kernel added into its output across a sequential grid; Hopper's blocks
-  run in no order, so block (tap, chunk) sums its chunk of 64-pixel tiles
-  into an f32 (Co, Ci) partial, and a second, small launch sums the
-  partials in chunk order: no atomics, the same bits on every run. Both
-  launches are the one `conv3x3_dw` kernel and count as one launch.
-Not yet: `wgmma`, TMA, a pipelined ring of stages, a persistent grid.
+  x[n, ci, h + ky - 1, w + kx - 1], a GEMM with M = Co, N = 9 Ci and K =
+  N H W pixels. The TPU kernel added into its output across a sequential
+  grid; Hopper's blocks run in no order, so each block sums into its own
+  f32 partial, and a second, small launch sums the partials in block
+  order: no atomics, the same bits on every run. Both launches are the one
+  `conv3x3_dw` kernel and count as one launch. In bf16 (`dw_bf16`) a block
+  walks runs of output rows of one image (`dw_rows_geometry`), in column
+  strips of at most 128, and keeps a ring of x rows (three in use, one
+  arriving by `cp.async`) and of dY rows in shared memory: every row is
+  staged once for all nine taps, which 18 warps, one per (tap, half of
+  Co), take on the tensor cores. The odd tap shifts read a second copy of
+  each x row shifted by one element, so that every operand pair starts at
+  an even element. In f32 (`dw_f32`) block (tap, chunk) sums its chunk
+  of 64-pixel tiles (`dw_geometry`) in plain FFMA.
+Not yet: `wgmma`, TMA, a persistent grid; the forward has no ring of
+stages.
 
 On a CPU tensor the wrappers run the plain versions, `conv3x3_reference`
 and `conv3x3_dw_reference`: the sum over the nine taps of an `einsum` of
@@ -55,6 +64,7 @@ inputs). On a CUDA tensor they launch the kernel or raise.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -62,9 +72,13 @@ import torch.nn.functional as F
 from msml_torch.kernels import _nvcc
 
 C = 64                # the only channel count the kernels take
-DW_TILE = 64          # pixels per dW tile (BK in csrc/conv3x3.cu)
-DW_MAX_CHUNKS = 256   # dW partials at most (a chunk is a run of tiles)
+DW_TILE = 64          # pixels per f32 dW tile (BK in csrc/conv3x3.cu)
+DW_MAX_CHUNKS = 256   # f32 dW partials at most (a chunk is a run of tiles)
+DW_STRIP = 128        # widest column strip of a bf16 dW block
+DW_BLOCKS = 132       # bf16 dW blocks aimed at: one per SM of an H100
+DW_PAD = 8            # elements left of column 0 in a staged bf16 x row
 MAX_WIDTH = 512       # the forward's staged rows fit in shared memory
+MAX_SMEM = 232448     # an H100 block's opt-in shared memory
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -138,7 +152,8 @@ def _check(x: torch.Tensor, other: torch.Tensor, other_shape, co: int,
 def _lib():
     lib = _nvcc.load("conv3x3")
     _nvcc.signature(lib.conv3x3_fwd, pointers=3, ints=4)
-    _nvcc.signature(lib.conv3x3_dw, pointers=4, ints=6)
+    _nvcc.signature(lib.conv3x3_dw_f32, pointers=4, ints=5)
+    _nvcc.signature(lib.conv3x3_dw_bf16, pointers=4, ints=8)
     return lib
 
 
@@ -164,12 +179,69 @@ def conv3x3_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def dw_geometry(n: int, h: int, w: int):
-    """(tiles_per_chunk, chunks) of the dW pixel loop: the N * ceil(HW / 64)
-    tiles are cut into at most DW_MAX_CHUNKS runs of equal length, from the
-    shape alone, so that the sum order is the same on every card."""
+    """(tiles_per_chunk, chunks) of the f32 dW pixel loop: the N *
+    ceil(HW / 64) tiles are cut into at most DW_MAX_CHUNKS runs of equal
+    length, from the shape alone, so that the sum order is the same on
+    every card."""
     tiles = n * -(-h * w // DW_TILE)
     per_chunk = -(-tiles // DW_MAX_CHUNKS)
     return per_chunk, -(-tiles // per_chunk)
+
+
+class DwRows(NamedTuple):
+    """The bf16 dW kernel's blocking (`dw_rows_geometry`)."""
+    strip: int            # columns per strip, a multiple of 8, <= DW_STRIP
+    strips: int
+    rows: int             # output rows per run
+    runs: int             # runs per image
+    units: int            # (image, strip, run) units, image-major
+    units_per_block: int
+    blocks: int           # = the partials dw_reduce sums
+
+
+def dw_rows_geometry(n: int, h: int, w: int) -> DwRows:
+    """The bf16 dW kernel's blocking, from the shape alone (the same sum
+    order on every card): column strips of equal width (rounded up to 8,
+    so that every strip starts on a 16-byte boundary), then runs of rows
+    so that the units make about DW_BLOCKS blocks (one per image at
+    B = 128), then consecutive units per block if there are more."""
+    per_strip = -(-w // -(-w // DW_STRIP))
+    strip = -(-per_strip // 8) * 8
+    strips = -(-w // strip)
+    runs = max(1, min(h, DW_BLOCKS // (n * strips)))
+    rows = -(-h // runs)
+    runs = -(-h // rows)
+    units = n * strips * runs
+    per_block = -(-units // DW_BLOCKS)
+    return DwRows(strip, strips, rows, runs, units, per_block,
+                  -(-units // per_block))
+
+
+def _round16(v: int) -> int:
+    return -(-v // 16) * 16
+
+
+def dw_row_stride(need: int) -> int:
+    """Stride (elements) of a staged bf16 dW row of `need` elements: a
+    multiple of 8 whose half is an odd multiple of 4, so that the rows of
+    an mma fragment fall in distinct shared-memory banks."""
+    return (need + 7) // 16 * 16 + 8
+
+
+def dw_smem_bytes(w: int) -> int:
+    """Shared memory of the bf16 dW kernel at width w: four x rows in two
+    copies (DW_PAD + Wk + 8 columns) and two dY rows (Wk columns)."""
+    wk = _round16(dw_rows_geometry(1, 1, w).strip)
+    return C * 2 * (4 * 2 * dw_row_stride(wk + 2 * DW_PAD)
+                    + 2 * dw_row_stride(wk))
+
+
+def dw_vector(w: int, *tensors: torch.Tensor) -> int:
+    """Elements per copy of the bf16 dW staging (16, 8 or 4 bytes, or 2
+    through registers): the most that divides the width and keeps every
+    copy aligned in the given tensors."""
+    return next(v for v in (8, 4, 2, 1) if w % v == 0 and all(
+        t.data_ptr() % (2 * v) == 0 for t in tensors))
 
 
 def conv3x3_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
@@ -181,16 +253,25 @@ def conv3x3_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return conv3x3_dw_reference(x, dy)
     n, _, h, wd = x.shape
-    per_chunk, chunks = dw_geometry(n, h, wd)
-    partial = torch.empty((chunks, 9, C, C), dtype=torch.float32,
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if x.dtype == torch.bfloat16:
+        geo = dw_rows_geometry(n, h, wd)
+        blocks = geo.blocks
+        args = (geo.strip, geo.rows, geo.units_per_block, blocks,
+                dw_vector(wd, x, dy))
+        launch = "conv3x3_dw_bf16"
+    else:
+        per_chunk, blocks = dw_geometry(n, h, wd)
+        args = (per_chunk, blocks)
+        launch = "conv3x3_dw_f32"
+    partial = torch.empty((blocks, 9, C, C), dtype=torch.float32,
                           device=x.device)
     dw = torch.empty((C, C, 3, 3), dtype=torch.float32, device=x.device)
     lib = _lib()
     with torch.cuda.device(x.device):
-        err = lib.conv3x3_dw(x.data_ptr(), dy.data_ptr(), partial.data_ptr(),
-                             dw.data_ptr(), n, h, wd, per_chunk, chunks,
-                             int(x.dtype == torch.bfloat16),
-                             torch.cuda.current_stream().cuda_stream)
+        err = getattr(lib, launch)(x.data_ptr(), dy.data_ptr(),
+                                   partial.data_ptr(), dw.data_ptr(), n, h,
+                                   wd, *args, stream)
     _nvcc.check(lib, err, "conv3x3_dw")
     conv3x3_dw.launches += 1
     return dw

@@ -29,10 +29,14 @@ import torch
 import torch.nn.functional as F
 
 from msml_torch.kernels import _nvcc
-from msml_torch.kernels.conv3x3 import (DW_MAX_CHUNKS, DW_TILE, conv3x3,
-                                        conv3x3_dw, conv3x3_dw_reference,
-                                        conv3x3_fwd, conv3x3_reference,
-                                        dw_geometry, flip_weights)
+from msml_torch.kernels.conv3x3 import (DW_BLOCKS, DW_MAX_CHUNKS, DW_PAD,
+                                        DW_STRIP, DW_TILE, MAX_SMEM,
+                                        MAX_WIDTH, conv3x3, conv3x3_dw,
+                                        conv3x3_dw_reference, conv3x3_fwd,
+                                        conv3x3_reference, dw_geometry,
+                                        dw_row_stride, dw_rows_geometry,
+                                        dw_smem_bytes, dw_vector,
+                                        flip_weights)
 from msml_torch.nn.common import Conv3x3, routed_conv_sites
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -281,8 +285,8 @@ def _fwd_by_tiles(x, w, bm=128):
 
 
 def _dw_by_tiles(x, dy):
-    """dw_bf16 / dw_f32's blocking in numpy: (tap, chunk) partials over
-    64-pixel tiles, then their sum in chunk order (dw_reduce)."""
+    """dw_f32's blocking in numpy: (tap, chunk) partials over 64-pixel
+    tiles, then their sum in chunk order (dw_reduce)."""
     n, c, h, wd = x.shape
     hw = h * wd
     tpi = -(-hw // DW_TILE)
@@ -323,6 +327,146 @@ def test_kernel_tiling_replayed_in_numpy(n, h, w, bm):
                                atol=1e-10)
     want = conv3x3_dw_reference(torch.from_numpy(x), torch.from_numpy(dy))
     np.testing.assert_allclose(_dw_by_tiles(x, dy), want.numpy(), atol=1e-10)
+
+
+def _round16(v):
+    return -(-v // 16) * 16
+
+
+def _units(geo, h, w):
+    """-> [(block, image, h0, h1, c0, cw)] in the order dw_bf16 walks them."""
+    out = []
+    for b in range(geo.blocks):
+        for u in range(b * geo.units_per_block,
+                       min(geo.units, (b + 1) * geo.units_per_block)):
+            run, strip = u % geo.runs, (u // geo.runs) % geo.strips
+            c0, h0 = strip * geo.strip, run * geo.rows
+            out.append((b, u // (geo.runs * geo.strips), h0,
+                        min(h, h0 + geo.rows), c0, min(geo.strip, w - c0)))
+    return out
+
+
+def _dw_bf16_by_rows(x, dy):
+    """dw_bf16's blocking in numpy, step for step: the units of each block,
+    the ring of four x rows (slot (r - h0 + 1) & 3) in an aligned copy at
+    the left pad DW_PAD and a copy shifted by one element, the ring of two
+    dY rows, K padded to Wk with zero columns and zero rows, each tap's
+    operand at the offset the kernel reads it (aligned copy at 8 for
+    kx = 1, shifted copy at 6 or 8), the next rows staged before the
+    current one is summed, then the partials added in block order. Shared
+    memory starts as NaN, so that a read of anything not staged shows."""
+    n, c, h, wd = x.shape
+    co = dy.shape[1]
+    geo = dw_rows_geometry(n, h, wd)
+    xs_stride = dw_row_stride(_round16(geo.strip) + 2 * DW_PAD)
+    ds_stride = dw_row_stride(_round16(geo.strip))
+    partial = np.zeros((geo.blocks, 9, co, c))
+    block = None
+    for b, img, h0, h1, c0, cw in _units(geo, h, wd):
+        if b != block:  # a block's shared memory, unwritten
+            block = b
+            xring = np.full((4, 2, c, xs_stride), np.nan)
+            dring = np.full((2, co, ds_stride), np.nan)
+        wk = _round16(cw)
+
+        def xslot(r):
+            return (r - h0 + 1) & 3
+
+        def stage_x(r):
+            cols = np.arange(c0 - DW_PAD, c0 + wk + DW_PAD)
+            vals = np.zeros((c, cols.size))
+            ok = (cols >= 0) & (cols < wd)
+            if 0 <= r < h:
+                vals[:, ok] = x[img, :, r, cols[ok]].T
+            xring[xslot(r), 0, :, :cols.size] = vals
+
+        def shift(r):
+            s = xslot(r)
+            xring[s, 1, :, :DW_PAD + wk] = xring[s, 0, :, 1:DW_PAD + wk + 1]
+
+        def stage_dy(r):
+            vals = np.zeros((co, wk))
+            vals[:, :cw] = dy[img, :, r, c0:c0 + cw]
+            dring[(r - h0) & 1, :, :wk] = vals
+
+        stage_x(h0 - 1)
+        stage_x(h0)
+        shift(h0 - 1)
+        shift(h0)
+        stage_x(h0 + 1)
+        stage_dy(h0)
+        for row in range(h0, h1):
+            shift(row + 1)
+            if row + 1 < h1:
+                stage_x(row + 2)
+                stage_dy(row + 1)
+            a = dring[(row - h0) & 1, :, :wk]
+            for tap in range(9):
+                ky, kx = divmod(tap, 3)
+                copy, off = (0, DW_PAD) if kx == 1 else (1, 6 if kx == 0
+                                                         else 8)
+                bt = xring[xslot(row + ky - 1), copy, :, off:off + wk]
+                partial[b, tap] += a @ bt.T
+    dw = np.zeros((9, co, c))
+    for b in range(geo.blocks):  # dw_reduce: block order
+        dw = dw + partial[b]
+    return dw.transpose(1, 2, 0).reshape(co, c, 3, 3)
+
+
+@pytest.mark.parametrize("n,h,w", [
+    (1, 1, 1), (1, 2, 3), (2, 5, 17), (1, 7, 28), (2, 3, 56), (1, 3, 112),
+    (1, 2, 129), (1, 2, 200), (40, 9, 20), (140, 1, 2)])
+def test_dw_bf16_rows_replayed_in_numpy(n, h, w):
+    """dw_bf16's runs, strips, row rings, shifted copies and padding give
+    the plain dW, in f64 (odd W, W not a multiple of 16, W > 128 in two
+    strips, runs of several rows, blocks of several units)."""
+    rng = np.random.RandomState(9)
+    x = rng.randn(n, 3, h, w)
+    dy = rng.randn(n, 4, h, w)
+    want = conv3x3_dw_reference(torch.from_numpy(x), torch.from_numpy(dy))
+    np.testing.assert_allclose(_dw_bf16_by_rows(x, dy), want.numpy(),
+                               atol=1e-10, rtol=0)
+
+
+@pytest.mark.parametrize("n,h,w", [(128, 112, 112), (128, 56, 56),
+                                   (128, 28, 28), (4, 112, 112), (3, 13, 17),
+                                   (2, 5, 200), (1, 1, 512), (300, 3, 9),
+                                   (1, 7, 129), (1, 1, 1)])
+def test_dw_rows_geometry_covers_every_pixel_once(n, h, w):
+    """Every (image, row, column) belongs to exactly one unit; strips
+    start on 8-element boundaries and are at most DW_STRIP wide; about one
+    block per SM (one per image at B = 128)."""
+    geo = dw_rows_geometry(n, h, w)
+    cover = np.zeros((n, h, w), int)
+    units = _units(geo, h, w)
+    for _, img, h0, h1, c0, cw in units:
+        assert c0 % 8 == 0 and 1 <= cw <= DW_STRIP and h0 < h1
+        cover[img, h0:h1, c0:c0 + cw] += 1
+    assert (cover == 1).all()
+    assert len(units) == geo.units and geo.blocks <= DW_BLOCKS
+    assert geo.strip % 8 == 0 and geo.strip <= DW_STRIP
+    if (n, h, w) == (128, 112, 112):
+        assert (geo.blocks, geo.rows) == (128, 112)
+
+
+def test_dw_shared_memory_fits_every_width():
+    """The bf16 dW kernel's shared memory stays within an H100 block's
+    232,448 bytes at every width the wrappers take, and its row strides
+    keep 16-byte rows and conflict-free fragment loads."""
+    sizes = [dw_smem_bytes(w) for w in range(1, MAX_WIDTH + 1)]
+    assert max(sizes) <= MAX_SMEM == 232448
+    for need in range(1, DW_STRIP + 2 * DW_PAD + 1):
+        s = dw_row_stride(need)
+        assert s >= need and s % 8 == 0 and (s // 2) % 8 == 4
+
+
+def test_dw_vector_keeps_copies_aligned():
+    base = torch.zeros(4096, dtype=torch.bfloat16)
+    assert dw_vector(112, base) == 8
+    assert dw_vector(28, base) == 4
+    assert dw_vector(30, base) == 2
+    assert dw_vector(17, base) == 1
+    assert dw_vector(112, base[4:]) == 4 and dw_vector(112, base[1:]) == 1
 
 
 def test_nvcc_missing_raises(monkeypatch, tmp_path):

@@ -181,6 +181,36 @@ def test_conv3x3_kernels_match_plain(cuda, dtype, shape):
     assert torch.equal(dw, conv3x3_dw(x, dy))  # no atomics: same bits
 
 
+DW_BF16_SHAPES = [(4, 112, 112), (4, 56, 56), (4, 28, 28), (3, 9, 17),
+                  (3, 27, 28), (2, 7, 57), (2, 5, 113), (2, 4, 200),
+                  (140, 3, 8)]
+
+
+@pytest.mark.parametrize("shape", DW_BF16_SHAPES)
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset"])
+def test_conv3x3_dw_bf16_rows_match_plain(cuda, shape, offset):
+    """The bf16 dW kernel (row rings, strips, every staging width: tensors
+    that start one element past an aligned address take the 2-byte path)
+    against the plain version in f32: relative L2 error <= 1e-3; two runs
+    bit-equal."""
+    from msml_torch.kernels.conv3x3 import (conv3x3_dw, conv3x3_dw_reference,
+                                            dw_vector)
+
+    n, h, w = shape
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    numel = n * 64 * h * w
+    x, dy = (torch.randn((numel + offset,), generator=gen, device=cuda)
+             .to(torch.bfloat16)[offset:].view(n, 64, h, w) for _ in range(2))
+    assert offset == 0 or dw_vector(w, x, dy) == 1
+    d0 = conv3x3_dw.launches
+    dw = conv3x3_dw(x, dy)
+    again = conv3x3_dw(x, dy)
+    torch.cuda.synchronize()
+    assert conv3x3_dw.launches == d0 + 2
+    assert _rel(dw, conv3x3_dw_reference(x.float(), dy.float())) <= 1e-3
+    assert torch.equal(dw, again)
+
+
 def test_conv3x3_autograd_under_autocast(cuda):
     """A routed Conv3x3 under bf16 autocast: bf16 output and dX, f32 weight
     gradient; against F.conv2d under the same autocast (cuDNN), relative L2
