@@ -6,7 +6,8 @@ Phases:
   1. device: the card's name and power limit, torch / CUDA / Triton versions
      (the card must be an H100 80GB HBM3: the bounds assume it); then the
      build of the CUDA kernels (`nvcc` into msml_torch/_build/cuda): its
-     time, the `nvcc --version` line and ptxas's registers and spills;
+     time, the `nvcc --version` line and ptxas's registers and spills (a
+     bf16 forward or dW kernel that spills fails);
   2. kernel: each kernel against its plain PyTorch version, and its time
      beside its bound:
      a. `augment_batch` at B = 512, 112 x 112 f32, over every option it
@@ -21,10 +22,11 @@ Phases:
         at the three C = 64 site shapes at B = 128, bf16 and f32, against
         the plain versions in f32 on the same inputs (relative L2 error:
         f32 forward / dX <= 1e-5, dW <= 1e-4; bf16 forward / dX <= 5e-3,
-        dW <= 1e-3), two dW runs bit-equal; the bf16 dW also at odd and
-        wide shapes (W = 17, 28 with odd H, 57, 113, 200); bf16 times at
-        the 112 x 112 site beside the bound and cuDNN (`F.conv2d`,
-        `conv2d_input`, `conv2d_weight`), and the bf16 dW at every site;
+        dW <= 1e-3), two forward and two dW runs bit-equal; the bf16
+        forward, dX and dW also at odd and wide shapes (W = 17, 28 with odd
+        H, 57, 113, 200), the forward and dX on aligned tensors and on
+        tensors one element off; bf16 times at every site beside the bound
+        and cuDNN (`F.conv2d`, `conv2d_input`, `conv2d_weight`);
   3. model: arc18_msml (configs/arc18_msml.yaml, random weights from the
      seed) in bf16 at B = 512 against the same model in float32 (TF32 off)
      and against the float32 model on the CPU; bf16 img/s;
@@ -98,8 +100,8 @@ PRELU_SITES = 42        # 9 iResNet + 24 FMCnn + 9 U-Net encoder
 CONV_SITES = 8          # 64 -> 64 3x3 stride-1 convs (nn.common.Conv3x3)
 CONV_SHAPES = ((64, 112, 112), (64, 56, 56), (64, 28, 28))  # (C, H, W)
 CONV_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (5e-3, 1e-3)}
-DW_ODD_SHAPES = ((4, 9, 17), (4, 27, 28), (4, 7, 57), (2, 5, 113),
-                 (2, 4, 200))  # (N, H, W) of the extra bf16 dW checks
+ODD_SHAPES = ((4, 9, 17), (4, 27, 28), (4, 7, 57), (2, 5, 113),
+              (2, 4, 200))  # (N, H, W) of the extra bf16 conv3x3 checks
 KERNEL_TOL = 1e-5       # kernel vs plain version, max abs diff
 DALPHA_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-3}  # relative L2
 BF16_MIN_COS = 0.99     # bf16 vs f32 feature cosine
@@ -167,12 +169,13 @@ def phase_build():
     for line in info["log"].splitlines():
         if "Compiling entry function" in line:
             m = re.search(r"(fwd_bf16|fwd_f32|dw_bf16|dw_f32|dw_reduce)"
-                          r"(?:ILi(\d+)E)?", line)
-            kernel = (m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+                          r"(?:I((?:Li\d+E)+)E)?", line)
+            args = re.findall(r"Li(\d+)E", m.group(2) or "") if m else []
+            kernel = (m.group(1) + (f"<{', '.join(args)}>" if args else "")
                       if m else line)
         elif kernel and ("registers" in line or "spill" in line):
             print(f"[1 build]   {kernel}: {line.strip()}")
-            if kernel.startswith("dw_bf16") and re.search(
+            if kernel.startswith(("fwd_bf16", "dw_bf16")) and re.search(
                     r"[1-9]\d* bytes spill", line):
                 spills.append(kernel)
     if spills:
@@ -395,10 +398,18 @@ def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     return ((a.double() - b.double()).norm() / b.double().norm()).item()
 
 
+def offset_bf16(gen, shape, offset: int) -> torch.Tensor:
+    """A contiguous bf16 tensor that starts `offset` elements past an
+    aligned address."""
+    numel = math.prod(shape)
+    return (torch.randn((numel + offset,), generator=gen, device="cuda")
+            .bfloat16()[offset:].view(shape))
+
+
 def phase_kernel_conv(seed: int):
     """conv3x3_fwd (forward and dX) and conv3x3_dw against the plain
-    versions at the three site shapes, then the bf16 times at 112 x 112
-    beside the bound and cuDNN."""
+    versions at the three site shapes and at odd and wide shapes, then the
+    bf16 times at every site beside the bound and cuDNN."""
     from torch.nn.grad import conv2d_input, conv2d_weight
     import torch.nn.functional as F
 
@@ -424,10 +435,11 @@ def phase_kernel_conv(seed: int):
                            conv3x3_reference(dy.float(), wf.float())),
                     "dw": (conv3x3_dw(x, dy),
                            conv3x3_dw_reference(x.float(), dy.float()))}
-            again = conv3x3_dw(x, dy)
+            again = conv3x3_fwd(x, wt), conv3x3_dw(x, dy)
             torch.cuda.synchronize()
-            if not torch.equal(outs["dw"][0], again):
-                fail(f"conv3x3_dw {dtype} {(c, h, w)}: two runs differ")
+            if not (torch.equal(outs["fwd"][0], again[0])
+                    and torch.equal(outs["dw"][0], again[1])):
+                fail(f"conv3x3 {dtype} {(c, h, w)}: two runs differ")
             for part, (got, ref) in outs.items():
                 rel = rel_l2(got, ref)
                 tol = tol_dw if part == "dw" else tol_y
@@ -443,66 +455,80 @@ def phase_kernel_conv(seed: int):
     print(f"[2d conv3x3] {len(CONV_SHAPES)} site shapes at B={B_TRAIN}, bf16 "
           "and f32, against the plain versions in f32: relative L2 error "
           + ", ".join(f"{d} {p} {v:.2e}" for (d, p), v in worst.items())
-          + "; two dW runs bit-equal")
+          + "; two forward and two dW runs bit-equal")
     odd = []
-    for n, h, w in DW_ODD_SHAPES:
-        x = torch.randn((n, 64, h, w), generator=gen,
-                        device="cuda").bfloat16()
-        dy = torch.randn(x.shape, generator=gen, device="cuda").bfloat16()
-        got, again = conv3x3_dw(x, dy), conv3x3_dw(x, dy)
-        ref = conv3x3_dw_reference(x.float(), dy.float())
+    for (n, h, w), offset in itertools.product(ODD_SHAPES, (0, 1)):
+        x = offset_bf16(gen, (n, 64, h, w), offset)
+        dy = offset_bf16(gen, (n, 64, h, w), offset)
+        wt = (torch.randn((64, 64, 3, 3), generator=gen, device="cuda")
+              / 24).bfloat16()
+        wf = flip_weights(wt).contiguous()
+        got = {"fwd": (conv3x3_fwd(x, wt),
+                       conv3x3_reference(x.float(), wt.float())),
+               "dx": (conv3x3_fwd(dy, wf),
+                      conv3x3_reference(dy.float(), wf.float()))}
+        agains = [(got["fwd"][0], conv3x3_fwd(x, wt))]
+        if offset == 0:
+            got["dw"] = (conv3x3_dw(x, dy),
+                         conv3x3_dw_reference(x.float(), dy.float()))
+            agains.append((got["dw"][0], conv3x3_dw(x, dy)))
         torch.cuda.synchronize()
-        rel = rel_l2(got, ref)
-        if not (rel <= CONV_TOL[torch.bfloat16][1]
-                and torch.equal(got, again)):
-            fail(f"conv3x3_dw bf16 {(n, h, w)}: relative L2 error {rel}, "
-                 f"two runs equal {torch.equal(got, again)}")
-        errs["dw"] = max(errs["dw"], (got - ref).abs().max().item())
-        odd.append(f"{(n, h, w)} {rel:.2e}")
-    print("[2d conv3x3] bf16 dW at odd and wide shapes, relative L2 error: "
-          + ", ".join(odd) + "; two runs bit-equal at each")
+        rels = {part: rel_l2(a, ref) for part, (a, ref) in got.items()}
+        tols = {p: CONV_TOL[torch.bfloat16][p == "dw"] for p in rels}
+        if not (all(rels[p] <= tols[p] for p in rels)
+                and all(torch.equal(a, b) for a, b in agains)):
+            fail(f"conv3x3 bf16 {(n, h, w)} offset {offset}: relative L2 "
+                 f"errors {rels}, two runs equal "
+                 f"{[torch.equal(a, b) for a, b in agains]}")
+        for part, (a, ref) in got.items():
+            slot = "dw" if part == "dw" else "fwd"
+            errs[slot] = max(errs[slot], (a.float() - ref).abs().max().item())
+        odd.append(f"{(n, h, w)}{'+1' if offset else ''} "
+                   + "/".join(f"{v:.2e}" for v in rels.values()))
+    print("[2d conv3x3] bf16 at odd and wide shapes (+1: tensors one element "
+          "off), relative L2 error forward/dX[/dW]: " + ", ".join(odd)
+          + "; two runs bit-equal at each")
 
-    c, h, w = CONV_SHAPES[0]
     dtype = torch.bfloat16
-    x = torch.randn((B_TRAIN, c, h, w), generator=gen, device="cuda").to(dtype)
-    dy = torch.randn(x.shape, generator=gen, device="cuda").to(dtype)
-    wt = (torch.randn((c, c, 3, 3), generator=gen, device="cuda")
-          / 24).to(dtype)
-    wf = flip_weights(wt).contiguous()
-    flops = 2 * x.numel() * 9 * c  # per pass: 118.4 GFLOP at 112^2
-    nbytes = 2 * x.numel() * x.element_size()  # x and y, or x and dy
-    bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
-    bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS
-                else "operations")
-    timed = {
-        "fwd": (time_ms(lambda: conv3x3_fwd(x, wt), per_window=10),
-                time_ms(lambda: conv3x3_reference(x, wt), windows=3,
-                        per_window=3),
-                time_ms(lambda: F.conv2d(x, wt, padding=1), per_window=10)),
-        "dx": (time_ms(lambda: conv3x3_fwd(dy, wf), per_window=10),
-               time_ms(lambda: conv3x3_reference(dy, wf), windows=3,
-                       per_window=3),
-               time_ms(lambda: conv2d_input(x.shape, wt, dy, padding=1),
-                       per_window=10)),
-        "dw": (time_ms(lambda: conv3x3_dw(x, dy), per_window=10),
-               time_ms(lambda: conv3x3_dw_reference(x, dy), windows=3,
-                       per_window=3),
-               time_ms(lambda: conv2d_weight(x, wt.shape, dy, padding=1),
-                       per_window=10))}
-    for part, (ms, plain_ms, lib_ms) in timed.items():
-        print(f"[2d conv3x3] bf16 {part} at {(B_TRAIN, c, h, w)}: kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, cuDNN {lib_ms:.4f} ms, "
-              f"bound {bound_ms:.4f} ms ({bound_by}; {flops / 1e9:.1f} GFLOP,"
-              f" {nbytes / 1e6:.1f} MB) = {bound_ms / ms:.1%} of it")
-    for c2, h2, w2 in CONV_SHAPES[1:]:
-        x2 = torch.randn((B_TRAIN, c2, h2, w2), generator=gen,
-                         device="cuda").to(dtype)
-        dy2 = torch.randn(x2.shape, generator=gen, device="cuda").to(dtype)
-        ms = time_ms(lambda: conv3x3_dw(x2, dy2), per_window=10)
-        lib_ms = time_ms(lambda: conv2d_weight(x2, wt.shape, dy2, padding=1),
-                         per_window=10)
-        print(f"[2d conv3x3] bf16 dw at {(B_TRAIN, c2, h2, w2)}: kernel "
-              f"{ms:.4f} ms, cuDNN {lib_ms:.4f} ms")
+    sites = {}
+    for c, h, w in CONV_SHAPES:
+        x = torch.randn((B_TRAIN, c, h, w), generator=gen,
+                        device="cuda").to(dtype)
+        dy = torch.randn(x.shape, generator=gen, device="cuda").to(dtype)
+        wt = (torch.randn((c, c, 3, 3), generator=gen, device="cuda")
+              / 24).to(dtype)
+        wf = flip_weights(wt).contiguous()
+        flops = 2 * x.numel() * 9 * c  # per pass: 118.4 GFLOP at 112^2
+        nbytes = 2 * x.numel() * x.element_size()  # x and y, or x and dy
+        bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
+        bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS
+                    else "operations")
+        plain = (lambda fn: time_ms(fn, windows=3, per_window=3)) \
+            if (h, w) == CONV_SHAPES[0][1:] else (lambda fn: None)
+        t = {
+            "fwd": (time_ms(lambda: conv3x3_fwd(x, wt), per_window=10),
+                    plain(lambda: conv3x3_reference(x, wt)),
+                    time_ms(lambda: F.conv2d(x, wt, padding=1),
+                            per_window=10)),
+            "dx": (time_ms(lambda: conv3x3_fwd(dy, wf), per_window=10),
+                   plain(lambda: conv3x3_reference(dy, wf)),
+                   time_ms(lambda: conv2d_input(x.shape, wt, dy, padding=1),
+                           per_window=10)),
+            "dw": (time_ms(lambda: conv3x3_dw(x, dy), per_window=10),
+                   plain(lambda: conv3x3_dw_reference(x, dy)),
+                   time_ms(lambda: conv2d_weight(x, wt.shape, dy, padding=1),
+                           per_window=10))}
+        for part, (ms, plain_ms, lib_ms) in t.items():
+            print(f"[2d conv3x3] bf16 {part} at {(B_TRAIN, c, h, w)}: kernel "
+                  f"{ms:.4f} ms"
+                  + ("" if plain_ms is None else f", plain {plain_ms:.4f} ms")
+                  + f", cuDNN {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                  f"({bound_by}; {flops / 1e9:.1f} GFLOP, "
+                  f"{nbytes / 1e6:.1f} MB) = {bound_ms / ms:.1%} of it")
+        sites[f"{h}x{w}"] = (t, bound_ms, bound_by)
+        del x, dy
+    c, h, w = CONV_SHAPES[0]
+    timed, bound_ms, bound_by = sites[f"{h}x{w}"]
     entries = []
     for name, part, err, line in (("conv3x3_fwd", "fwd", errs["fwd"], 109),
                                   ("conv3x3_dw", "dw", errs["dw"], 186)):
@@ -514,9 +540,14 @@ def phase_kernel_conv(seed: int):
                  "bound_ms": bound_ms, "bound_by": bound_by,
                  "library_ms": lib_ms, "shape": [B_TRAIN, c, h, w],
                  "dtype": "bfloat16"}
+        parts = ("fwd", "dx") if part == "fwd" else ("dw",)
         if part == "fwd":
             entry["dx"] = dict(zip(("ms", "plain_ms", "library_ms"),
                                    timed["dx"]), bound_ms=bound_ms)
+        entry["sites"] = {
+            site: {p: {"ms": st[p][0], "library_ms": st[p][2]}
+                   for p in parts} | {"bound_ms": sb}
+            for site, (st, sb, _) in sites.items()}
         entries.append(entry)
     return entries
 

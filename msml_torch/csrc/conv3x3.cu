@@ -15,13 +15,9 @@
 namespace {
 
 constexpr int C = 64;           // input and output channels
-constexpr int THREADS = 256;    // 8 warps
-constexpr int NWARPS = THREADS / 32;
-constexpr int BM = 128;         // output pixels of one image per forward block
-constexpr int KC16 = 32;        // input channels staged per chunk, bf16
-constexpr int KS16 = KC16 + 8;  // their padded stride in smem (halves)
+constexpr int THREADS = 256;    // 8 warps (f32 forward and dW, dw_reduce)
+constexpr int BM = 128;         // output pixels of one image per f32 forward block
 constexpr int KC32 = 16;        // input channels staged per chunk, f32
-constexpr int YS = BM + 4;      // padded pixel stride of the bf16 epilogue
 constexpr int BK = 64;          // pixels per staged f32 dW tile
 constexpr int PS32 = BK + 1;    // padded pixel stride of a dW tile, f32
 constexpr int MAX_SMEM = 232448;  // an H100 block's opt-in shared memory
@@ -29,23 +25,31 @@ constexpr int DW_THREADS = 576;   // bf16 dW: 18 warps, (tap, half of Co)
 constexpr int DW_PAD = 8;         // elements left of column 0 in a staged x row
 constexpr int X_SLOTS = 4;        // x rows in the ring: three in use, one arriving
 constexpr int DY_SLOTS = 2;       // dY rows in the ring: one in use, one arriving
+constexpr int FWD_THREADS = 256;  // bf16 forward: 8 warps, (half of Co, tiles)
+constexpr int WS = C + 8;         // stride (halves) of a resident weight row and
+                                  // of a pixel of the bf16 forward's ring: 36
+                                  // words, so a fragment load is conflict-free
 
-// Image rows a forward block stages: the rows its BM pixels touch, plus
-// one halo row above and below.
+// Image rows an f32 forward block stages: the rows its BM pixels touch,
+// plus one halo row above and below.
 __host__ __device__ inline int rows_staged(int W) {
   return (W + BM - 2) / W + 3;
-}
-
-size_t fwd_smem_bf16(int W) {
-  size_t staged = (size_t)rows_staged(W) * (W + 2) * KS16 * 2
-                  + (size_t)9 * C * KS16 * 2;
-  size_t epilogue = (size_t)C * YS * 4;
-  return staged > epilogue ? staged : epilogue;
 }
 
 size_t fwd_smem_f32(int W) {
   return (size_t)KC32 * rows_staged(W) * (W + 2) * 4
          + (size_t)9 * KC32 * C * 4;
+}
+
+__host__ __device__ inline int round8(int v) { return (v + 7) / 8 * 8; }
+
+// Shared memory of fwd_bf16 for column strips of width sw: the resident
+// weights [9][C][WS], the ring of X_SLOTS pixel-major rows [Wk + 2][WS]
+// and the landing row [C][DW_PAD + Wk + 8], Wk = sw rounded up to 8.
+size_t fwd_smem_bf16(int sw) {
+  const int wk = round8(sw);
+  return (size_t)2 * (9 * C * WS + X_SLOTS * (wk + 2) * WS
+                      + C * (wk + 2 * DW_PAD));
 }
 
 __host__ __device__ inline int round16(int v) { return (v + 15) / 16 * 16; }
@@ -106,148 +110,12 @@ __device__ __forceinline__ void cp_async_zfill(void* dst, const void* src,
                  "l"(src), "n"(BYTES), "r"(n));
 }
 
-// Forward, bf16 in and out, f32 accumulation on the tensor cores.
-// Block (tile, n): output pixels [tile * BM, tile * BM + BM) of image n
-// (flattened h * W + w), all 64 output channels. Implicit GEMM with
-// M = pixels, N = Co, K = (tap, ci): per chunk of 32 input channels the
-// block stages the input rows it needs (halo and zero padding included,
-// channels innermost, two channels to a 32-bit word) and the chunk's
-// weights (w packed (3, 3, Co, Ci), 16-byte loads), then each warp runs
-// mma.m16n8k16 over a 32 x 32 (pixel x Co) tile for the 9 taps.
-__global__ void __launch_bounds__(THREADS)
-fwd_bf16(const uint16_t* __restrict__ x, const uint16_t* __restrict__ w,
-         __nv_bfloat16* __restrict__ y, int H, int W) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int HW = H * W, WP = W + 2;
-  const int n = blockIdx.y, p0 = blockIdx.x * BM;
-  const int r_lo = p0 / W;
-  const int nr = (min(p0 + BM, HW) - 1) / W - r_lo + 3;
-  uint16_t* xs = reinterpret_cast<uint16_t*>(smem);  // [nr][WP][KS16]
-  uint16_t* ws = xs + (size_t)rows_staged(W) * WP * KS16;  // [9][C][KS16]
-  const uint16_t* xn = x + (size_t)n * C * HW;
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp >> 1, wn = warp & 1;  // 4 x 2 warps
-
-  // staged position of tap (0, 0) for this thread's A rows: m-tile mi,
-  // rows g (i = 2 mi) and g + 8 (i = 2 mi + 1); pixels past the image
-  // read a valid position and are not stored
-  int pos[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    int p = min(p0 + wm * 32 + (i >> 1) * 16 + (i & 1) * 8 + g, HW - 1);
-    pos[i] = (p / W - r_lo) * WP + p % W;
-  }
-  float acc[2][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[mi][ni][r] = 0.f;
-
-  for (int c0 = 0; c0 < C; c0 += KC16) {
-    __syncthreads();
-    // (tap, co) rows of 32 input channels, four 16-byte pieces each,
-    // copied asynchronously while the input rows are staged
-#pragma unroll
-    for (int e = tid; e < 9 * C * (KC16 / 8); e += THREADS) {
-      const int row = e / (KC16 / 8), piece = e % (KC16 / 8);
-      cp_async16(ws + row * KS16 + piece * 8, w + row * C + c0 + piece * 8);
-    }
-    // one warp per (channel pair, staged row), lanes along the row; two
-    // rows and four column slots per pass, so that 16 loads are in flight
-    const int nq = (KC16 / 2) * nr;
-    for (int q0 = warp; q0 < nq; q0 += 2 * NWARPS) {
-      uint32_t v[2][4];
-      uint32_t* dst[2];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int q = q0 + j * NWARPS, kp = q / nr, r = q - kp * nr;
-        const int gh = r_lo - 1 + r;
-        const bool row_ok = q < nq && gh >= 0 && gh < H;
-        const uint16_t* src = xn + (size_t)(c0 + 2 * kp) * HW
-                              + (row_ok ? gh * W : 0);
-        dst[j] = q < nq ? reinterpret_cast<uint32_t*>(xs + r * WP * KS16)
-                              + kp : nullptr;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int c = lane + 32 * i;
-          v[j][i] = row_ok && c >= 1 && c <= W
-                        ? src[c - 1] | (uint32_t(src[HW + c - 1]) << 16)
-                        : 0u;
-        }
-        for (int c = lane + 128; c < WP; c += 32)  // rows wider than 126
-          if (dst[j])
-            dst[j][c * (KS16 / 2)] = row_ok && c <= W
-                ? src[c - 1] | (uint32_t(src[HW + c - 1]) << 16) : 0u;
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          if (dst[j] && lane + 32 * i < WP)
-            dst[j][(lane + 32 * i) * (KS16 / 2)] = v[j][i];
-    }
-    cp_async_wait_all();
-    __syncthreads();
-#pragma unroll
-    for (int tap = 0; tap < 9; ++tap) {
-      const int toff = (tap / 3) * WP + tap % 3;
-#pragma unroll
-      for (int ks = 0; ks < KC16; ks += 16) {
-        uint32_t a[2][4], b[4][2];
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          const uint16_t* r0 = xs + (pos[2 * mi] + toff) * KS16 + ks + 2 * t;
-          const uint16_t* r1 =
-              xs + (pos[2 * mi + 1] + toff) * KS16 + ks + 2 * t;
-          a[mi][0] = ld32(r0);
-          a[mi][1] = ld32(r1);
-          a[mi][2] = ld32(r0 + 8);
-          a[mi][3] = ld32(r1 + 8);
-        }
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-          const uint16_t* q =
-              ws + (tap * C + wn * 32 + ni * 8 + g) * KS16 + ks + 2 * t;
-          b[ni][0] = ld32(q);
-          b[ni][1] = ld32(q + 8);
-        }
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-          for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], a[mi], b[ni]);
-      }
-    }
-  }
-
-  // epilogue through smem, so that the stores run along the pixels
-  __syncthreads();
-  float* ys = reinterpret_cast<float*>(smem);  // [C][YS]
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      int co = wn * 32 + ni * 8 + 2 * t, pm = wm * 32 + mi * 16 + g;
-      ys[co * YS + pm] = acc[mi][ni][0];
-      ys[(co + 1) * YS + pm] = acc[mi][ni][1];
-      ys[co * YS + pm + 8] = acc[mi][ni][2];
-      ys[(co + 1) * YS + pm + 8] = acc[mi][ni][3];
-    }
-  __syncthreads();
-  __nv_bfloat16* yn = y + (size_t)n * C * HW;
-  for (int e = tid; e < C * BM; e += THREADS) {
-    int pm = e % BM, co = e / BM;
-    if (p0 + pm < HW)
-      yn[(size_t)co * HW + p0 + pm] = __float2bfloat16_rn(ys[co * YS + pm]);
-  }
-}
-
-// Forward, f32 in and out, plain FFMA (no TF32). Same tiling as fwd_bf16;
-// chunks of 16 input channels, staged channel-major; thread (lane, warp)
-// computes pixels lane + 32 i (i < 4) and output channels warp * 8 + j.
+// Forward, f32 in and out, plain FFMA (no TF32). Block (tile, n): output
+// pixels [tile * BM, tile * BM + BM) of image n (flattened h * W + w), all
+// 64 output channels; per chunk of 16 input channels it stages the input
+// rows it needs (halo and zero padding included, channel-major) and the
+// chunk's weights; thread (lane, warp) computes pixels lane + 32 i (i < 4)
+// and output channels warp * 8 + j.
 __global__ void __launch_bounds__(THREADS)
 fwd_f32(const float* __restrict__ x, const float* __restrict__ w,
         float* __restrict__ y, int H, int W) {
@@ -346,8 +214,8 @@ __device__ __forceinline__ void stage_dw_tile(
 // the columns [lo, hi) and for rows outside the image. VEC elements per
 // copy (cp.async of 2 VEC bytes; VEC = 1 through registers for odd W);
 // the wrapper picks VEC so that every copy is aligned and lies wholly
-// inside or outside [lo, hi).
-template <int VEC>
+// inside or outside [lo, hi). NTHREADS threads share the copies.
+template <int VEC, int NTHREADS>
 __device__ __forceinline__ void stage_row(uint16_t* dst, int stride,
                                           const uint16_t* __restrict__ src,
                                           int H, int W, int row, int col0,
@@ -355,7 +223,7 @@ __device__ __forceinline__ void stage_row(uint16_t* dst, int stride,
   const size_t HW = (size_t)H * W;
   const bool row_ok = row >= 0 && row < H;
   const int per_c = ncols / VEC;
-  for (int e = threadIdx.x; e < C * per_c; e += DW_THREADS) {
+  for (int e = threadIdx.x; e < C * per_c; e += NTHREADS) {
     const int c = e / per_c, j = (e - c * per_c) * VEC, col = col0 + j;
     const bool ok = row_ok && col >= lo && col < hi;
     const uint16_t* s = ok ? src + c * HW + (size_t)row * W + col : src;
@@ -384,6 +252,191 @@ __device__ __forceinline__ void shift_row(const uint16_t* xs, uint16_t* xsh,
     o.z = __funnelshift_r(v.z, v.w, 16);
     o.w = __funnelshift_r(v.w, next, 16);
     *reinterpret_cast<uint4*>(xsh + c * stride + j) = o;
+  }
+}
+
+// The landed x row (channel-major, land[c][j] = column c0 - DW_PAD + j) as
+// pixel-major ring slot rows: slot[p][c] = column c0 - 1 + p, for
+// p < wk + 2, two channels to a 32-bit word. A thread takes one channel
+// pair and 8 columns: two 16-byte loads, eight 32-bit stores (a warp's
+// stores fill 32 consecutive words of one pixel row).
+template <int NTHREADS>
+__device__ __forceinline__ void transpose_row(const uint16_t* land, int ls,
+                                              uint16_t* slot, int wk) {
+  const int pieces = (wk + 2 * DW_PAD) / 8;
+  for (int e = threadIdx.x; e < (C / 2) * pieces; e += NTHREADS) {
+    const int cp = e % (C / 2), jb = e / (C / 2);
+    const uint16_t* s = land + 2 * cp * ls + 8 * jb;
+    const uint4 lo = *reinterpret_cast<const uint4*>(s);
+    const uint4 hi = *reinterpret_cast<const uint4*>(s + ls);
+    const uint32_t l[4] = {lo.x, lo.y, lo.z, lo.w};
+    const uint32_t u[4] = {hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int p = 8 * jb + i - (DW_PAD - 1);
+      if (p >= 0 && p < wk + 2)
+        reinterpret_cast<uint32_t*>(slot + p * WS)[cp] =
+            __byte_perm(l[i / 2], u[i / 2], i % 2 ? 0x7632 : 0x5410);
+    }
+  }
+}
+
+// Forward, bf16 in and out, f32 accumulation on the tensor cores; dX is
+// this kernel on flipped weights. Replaces `_fwd_kernel` of
+// benchmarks/negative/conv_gemm.py:109:
+//   y[n, co, h, w] = sum over ky, kx, ci of w[co, ci, ky, kx]
+//                    * x[n, ci, h + ky - 1, w + kx - 1] (zero outside),
+// per output row a GEMM with M = Co = 64, N = the row's pixels and
+// K = 9 Ci = 576.
+//
+// Bound at the 112 x 112 site, B = 128: x and y, 411 MB, cross the memory
+// once (0.123 ms at 3.35 TB/s); 118.4 GFLOP (0.120 ms at 989 TFLOP/s).
+// The design it replaced (v3, 1.0237 ms there on an H100 80GB HBM3 at
+// 700 W) ran one block per 128 flattened pixels, 12,544 blocks at 112^2:
+// every block reloaded the 73.7 KB of weights (~925 MB through L2), staged
+// its ~4 input rows with the halo by 2-byte loads through registers (x
+// crossed L2 about 3.5 times), and had no pipeline: per chunk of 32
+// channels, barrier, stage, wait, barrier, nine taps.
+//
+// This kernel: a persistent block walks units (image, strip of <= 128
+// columns, run of output rows), units_per_block of them in order
+// (dw_rows_geometry: one image per block at B = 128). The packed weights
+// (ky, kx, Co, Ci) arrive once per block and stay resident, [9][C][WS]. An
+// x row arrives by cp.async (stage_row: zero fill outside the image) into
+// one channel-major landing row and is transposed once (transpose_row)
+// into a pixel-major ring slot, slot (r - h0 + 1) & 3: rows h - 1, h, h + 1
+// in use, row h + 2 made while row h + 3 is in flight. Every x row crosses
+// the memory once, plus two halo rows per run. Output row h is the sum of
+// nine aligned products, mma.m16n8k16 with A = the tap's weights (pairs
+// along Ci) and B = slot row h + ky - 1 at pixel w + kx (pairs along Ci):
+// a pixel is a whole WS row of the slot, so the odd tap offsets need no
+// shifted copy. N is the row padded to 8; the 8 warps own (half of Co,
+// every fourth n8 tile of the row); 16 warps, each with half the tiles,
+// need 3 shared loads per mma instead of 2 and were slower at every site. The accumulators hold two neighbouring pixels
+// of one output channel, rounded to bf16 once and stored along W (one
+// 32-bit store per pair when W is even). Each output is summed by one
+// thread in a fixed order: runs are bit-equal.
+template <int VEC>
+__global__ void __launch_bounds__(FWD_THREADS, 1)
+fwd_bf16(const uint16_t* __restrict__ x, const uint16_t* __restrict__ w,
+         __nv_bfloat16* __restrict__ y, int H, int W, int sw,
+         int rows_per_run, int units_per_block, int units) {
+  constexpr int NTHREADS = FWD_THREADS;
+  constexpr int NG = NTHREADS / 64;  // warps per half of Co
+  constexpr int NI = 16 / NG;        // n8 tiles a warp owns at most (Wk <= 128)
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int strips = (W + sw - 1) / sw;
+  const int runs = (H + rows_per_run - 1) / rows_per_run;
+  const int LS = round8(sw) + 2 * DW_PAD;  // landing row stride
+  const int SP = (round8(sw) + 2) * WS;    // ring slot size
+  uint16_t* ws = reinterpret_cast<uint16_t*>(smem);  // [9][C][WS]
+  uint16_t* ring = ws + 9 * C * WS;                  // [slot][Wk + 2][WS]
+  uint16_t* land = ring + X_SLOTS * SP;              // [C][LS]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = (warp & 1) * 32, ng = warp >> 1;
+
+  // (tap, co) rows of 64 input channels, eight 16-byte pieces each; the
+  // first row's wait and barrier cover them
+  for (int e = tid; e < 9 * C * (C / 8); e += NTHREADS)
+    cp_async16(ws + (e / 8) * WS + (e % 8) * 8, w + e * 8);
+
+  float acc[2][NI][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int j = 0; j < NI; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[mi][j][r] = 0.f;
+
+  const bool pairs = W % 2 == 0;
+  const int u0 = blockIdx.x * units_per_block;
+  const int u_end = min(units, u0 + units_per_block);
+  for (int u = u0; u < u_end; ++u) {
+    const int run = u % runs, strip = (u / runs) % strips;
+    const int n = u / (runs * strips);
+    const int c0 = strip * sw, cw = min(sw, W - c0), wk = round8(cw);
+    const int nt_row = wk / 8;
+    const int h0 = run * rows_per_run, h1 = min(H, h0 + rows_per_run);
+    const uint16_t* xn = x + (size_t)n * C * H * W;
+    auto slot = [&](int r) {
+      return ring + ((r - h0 + 1) & (X_SLOTS - 1)) * SP;
+    };
+    // x row r has been asked for: once it lands and every warp is done
+    // with the slot it takes (that of row r - 4), transpose it there, then
+    // ask for row r + 1 if the run needs it (rows h0 - 1 .. h1)
+    auto advance = [&](int r) {
+      cp_async_wait_all();
+      __syncthreads();
+      transpose_row<NTHREADS>(land, LS, slot(r), wk);
+      __syncthreads();
+      if (r + 1 <= h1)
+        stage_row<VEC, NTHREADS>(land, LS, xn, H, W, r + 1, c0 - DW_PAD,
+                                 wk + 2 * DW_PAD, 0, W);
+    };
+    stage_row<VEC, NTHREADS>(land, LS, xn, H, W, h0 - 1, c0 - DW_PAD,
+                             wk + 2 * DW_PAD, 0, W);
+    advance(h0 - 1);
+    advance(h0);
+    advance(h0 + 1);
+    for (int h = h0; h < h1; ++h) {
+      if (h + 2 <= h1) advance(h + 2);
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        const int ky = tap / 3, kx = tap % 3;
+        const uint16_t* as = ws + (tap * C + m0 + g) * WS + 2 * t;
+        const uint16_t* bs = slot(h + ky - 1) + (g + kx) * WS + 2 * t;
+#pragma unroll
+        for (int k0 = 0; k0 < C; k0 += 16) {
+          uint32_t a[2][4];
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi) {
+            const uint16_t* r0 = as + mi * 16 * WS + k0;
+            a[mi][0] = ld32(r0);
+            a[mi][1] = ld32(r0 + 8 * WS);
+            a[mi][2] = ld32(r0 + 8);
+            a[mi][3] = ld32(r0 + 8 * WS + 8);
+          }
+#pragma unroll
+          for (int j = 0; j < NI; ++j) {
+            const int nt = ng + j * NG;
+            if (nt < nt_row) {
+              const uint16_t* q = bs + nt * 8 * WS + k0;
+              const uint32_t b[2] = {ld32(q), ld32(q + 8)};
+              mma_bf16(acc[0][j], a[0], b);
+              mma_bf16(acc[1][j], a[1], b);
+            }
+          }
+        }
+      }
+      // y[n, co, h, c0 + wc], y[n, co, h, c0 + wc + 1] for wc < cw
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int j = 0; j < NI; ++j) {
+          const int wc = (ng + j * NG) * 8 + 2 * t;
+          if (wc < cw) {
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+              const int co = m0 + mi * 16 + g + 8 * half;
+              const float v0 = acc[mi][j][2 * half];
+              const float v1 = acc[mi][j][2 * half + 1];
+              __nv_bfloat16* out =
+                  y + ((size_t)(n * C + co) * H + h) * W + c0 + wc;
+              if (pairs) {
+                *reinterpret_cast<__nv_bfloat162*>(out) =
+                    __floats2bfloat162_rn(v0, v1);
+              } else {
+                out[0] = __float2bfloat16_rn(v0);
+                if (wc + 1 < cw) out[1] = __float2bfloat16_rn(v1);
+              }
+            }
+          }
+#pragma unroll
+          for (int r = 0; r < 4; ++r) acc[mi][j][r] = 0.f;
+        }
+    }
   }
 }
 
@@ -466,11 +519,11 @@ dw_bf16(const uint16_t* __restrict__ x, const uint16_t* __restrict__ dy,
       return dring + ((r - h0) & (DY_SLOTS - 1)) * C * DS;
     };
     auto stage_x = [&](int r) {
-      stage_row<VEC>(xslot(r), XS, xn, H, W, r, c0 - DW_PAD,
+      stage_row<VEC, DW_THREADS>(xslot(r), XS, xn, H, W, r, c0 - DW_PAD,
                      wk + 2 * DW_PAD, 0, W);
     };
     auto stage_dy = [&](int r) {
-      stage_row<VEC>(dslot(r), DS, dyn, H, W, r, c0, wk, c0, c0 + cw);
+      stage_row<VEC, DW_THREADS>(dslot(r), DS, dyn, H, W, r, c0, wk, c0, c0 + cw);
     };
 
     __syncthreads();  // every warp is done with the previous unit's rows
@@ -600,28 +653,49 @@ extern "C" {
 
 // y = conv3x3(x, w): x (n, 64, h, wd), y like x; w is (64, 64, 3, 3)
 // (Co, Ci, ky, kx) for float32 and packed (3, 3, 64, 64) (ky, kx, Co, Ci)
-// for bfloat16 (bf16 != 0).
+// for bfloat16 (bf16 != 0). The bf16 kernel's blocking: column strips of
+// sw, runs of rows_per_run rows, units_per_block (image, strip, run) units
+// per block, `blocks` blocks, copies of vec elements (8, 4, 2 or 1); the
+// f32 kernel ignores them.
 int conv3x3_fwd(const void* x, const void* w, void* y, int n, int h, int wd,
-                int bf16, void* stream) {
-  static bool ready_bf16 = false, ready_f32 = false;
+                int bf16, int sw, int rows_per_run, int units_per_block,
+                int blocks, int vec, void* stream) {
+  static bool ready_f32 = false, ready[4] = {};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid((h * wd + BM - 1) / BM, n);
-  size_t smem = bf16 ? fwd_smem_bf16(wd) : fwd_smem_f32(wd);
-  if (smem > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
   cudaError_t err;
-  if (bf16) {
-    if ((err = allow_smem(fwd_bf16, &ready_bf16)) != cudaSuccess)
-      return (int)err;
-    fwd_bf16<<<grid, THREADS, smem, s>>>(
-        static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(w),
-        static_cast<__nv_bfloat16*>(y), h, wd);
-  } else {
+  if (!bf16) {
+    const size_t smem = fwd_smem_f32(wd);
+    if (smem > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
     if ((err = allow_smem(fwd_f32, &ready_f32)) != cudaSuccess)
       return (int)err;
-    fwd_f32<<<grid, THREADS, smem, s>>>(static_cast<const float*>(x),
-                                        static_cast<const float*>(w),
-                                        static_cast<float*>(y), h, wd);
+    fwd_f32<<<dim3((h * wd + BM - 1) / BM, n), THREADS, smem, s>>>(
+        static_cast<const float*>(x), static_cast<const float*>(w),
+        static_cast<float*>(y), h, wd);
+    return (int)cudaGetLastError();
   }
+  const size_t smem = fwd_smem_bf16(sw);
+  if (smem > (size_t)MAX_SMEM || sw % 8 != 0 || sw > 128 ||
+      reinterpret_cast<uintptr_t>(w) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(y) % 4 != 0)
+    return (int)cudaErrorInvalidValue;
+  const int units = n * ((wd + sw - 1) / sw)
+                    * ((h + rows_per_run - 1) / rows_per_run);
+  const auto* xp = static_cast<const uint16_t*>(x);
+  const auto* wp = static_cast<const uint16_t*>(w);
+  auto* yp = static_cast<__nv_bfloat16*>(y);
+#define FWD_LAUNCH(V, I)                                                     \
+  if ((err = allow_smem(fwd_bf16<V>, &ready[I])) != cudaSuccess)             \
+    return (int)err;                                                         \
+  fwd_bf16<V><<<blocks, FWD_THREADS, smem, s>>>(                             \
+      xp, wp, yp, h, wd, sw, rows_per_run, units_per_block, units)
+  switch (vec) {
+    case 8: FWD_LAUNCH(8, 0); break;
+    case 4: FWD_LAUNCH(4, 1); break;
+    case 2: FWD_LAUNCH(2, 2); break;
+    case 1: FWD_LAUNCH(1, 3); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef FWD_LAUNCH
   return (int)cudaGetLastError();
 }
 

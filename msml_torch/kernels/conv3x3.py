@@ -23,20 +23,28 @@ Bound on the card. At the 112 x 112 site and B = 128 a pass does
 and moves x and y, 2 * 205.5 MB (0.123 ms at 3.35 TB/s): both bounds are
 close, bytes a little ahead. In f32 the bound is the 67 TFLOP/s of FFMA.
 
-Design (simple first, see PERF.md for its times):
-- forward: an implicit GEMM, M = output pixels, N = Co = 64, K = 9 Ci.
-  One block owns 128 flattened pixels of one image and all 64 output
-  channels. Per chunk of input channels it stages the image rows it needs,
-  with a one-pixel halo and the zero padding, and the chunk's weights in
-  shared memory, then loops over the 9 taps: bf16 on the tensor cores with
-  `mma.sync.m16n8k16` (f32 accumulators), f32 in plain FFMA (no TF32).
-  Loads run along W, as NCHW stores them; the bf16 epilogue goes through
-  shared memory so that the stores run along the pixels too. What bounds
-  this first kernel is the staging, not the tensor cores: one block waits
-  on its own loads at each barrier. So the bf16 staging keeps 16 loads in
-  flight per thread, puts two channels in each 32-bit shared word, and
-  copies the weights (packed (ky, kx, Co, Ci) by the wrapper) with
-  `cp.async` while the input rows load.
+Design (see PERF.md for its times):
+- forward, bf16 (`fwd_bf16`): per output row a GEMM with M = Co = 64,
+  N = the row's pixels and K = 9 Ci. The version it replaced ran one block
+  per 128 flattened pixels (12,544 blocks at 112^2): each reloaded all
+  73.7 KB of weights, staged ~4 input rows with their halo by 2-byte loads
+  (x crossed L2 ~3.5 times) and had no pipeline. Now a persistent block
+  walks runs of output rows of one image (`dw_rows_geometry`, as dW; one
+  image per block at B = 128, column strips of at most 128), keeps the
+  packed weights resident in shared memory for its whole life, and keeps
+  a ring of four pixel-major x rows (rows h - 1, h, h + 1 in use, h + 2
+  being made): each row arrives once by 16-byte `cp.async` into a
+  channel-major landing row and is transposed once into its ring slot,
+  two channels to a 32-bit word, while row h + 3 is in flight. A tap
+  reads pixel w + kx of the slot of row h + ky - 1: a pixel is a whole
+  slot row, so the odd tap offsets need no shifted copy. The 8 warps
+  (`FWD_WARPS`) own (half of Co, every fourth n8 tile of the row) and run
+  `mma.sync.m16n8k16` (f32 accumulators); the result is rounded to bf16
+  once and stored along W from the registers.
+- forward, f32 (`fwd_f32`): one block owns 128 flattened pixels of one
+  image and all 64 output channels; per chunk of 16 input channels it
+  stages the rows it needs (halo and zero padding) and the chunk's
+  weights, then sums the 9 taps in plain FFMA (no TF32).
 - dW: dW[co, ci, ky, kx] = sum over n, h, w of dy[n, co, h, w] *
   x[n, ci, h + ky - 1, w + kx - 1], a GEMM with M = Co, N = 9 Ci and K =
   N H W pixels. The TPU kernel added into its output across a sequential
@@ -52,8 +60,7 @@ Design (simple first, see PERF.md for its times):
   each x row shifted by one element, so that every operand pair starts at
   an even element. In f32 (`dw_f32`) block (tap, chunk) sums its chunk
   of 64-pixel tiles (`dw_geometry`) in plain FFMA.
-Not yet: `wgmma`, TMA, a persistent grid; the forward has no ring of
-stages.
+Not yet: `wgmma`, TMA, `ldmatrix`.
 
 On a CPU tensor the wrappers run the plain versions, `conv3x3_reference`
 and `conv3x3_dw_reference`: the sum over the nine taps of an `einsum` of
@@ -77,8 +84,11 @@ DW_MAX_CHUNKS = 256   # f32 dW partials at most (a chunk is a run of tiles)
 DW_STRIP = 128        # widest column strip of a bf16 dW block
 DW_BLOCKS = 132       # bf16 dW blocks aimed at: one per SM of an H100
 DW_PAD = 8            # elements left of column 0 in a staged bf16 x row
-MAX_WIDTH = 512       # the forward's staged rows fit in shared memory
+MAX_WIDTH = 512       # the f32 forward's staged rows fit in shared memory
 MAX_SMEM = 232448     # an H100 block's opt-in shared memory
+FWD_WARPS = 8         # warps of a bf16 forward block (FWD_THREADS / 32)
+WS = C + 8            # stride of a resident weight row and a ring pixel (halves)
+X_SLOTS = 4           # pixel-major x rows in the bf16 forward's ring
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -151,7 +161,7 @@ def _check(x: torch.Tensor, other: torch.Tensor, other_shape, co: int,
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = _nvcc.load("conv3x3")
-    _nvcc.signature(lib.conv3x3_fwd, pointers=3, ints=4)
+    _nvcc.signature(lib.conv3x3_fwd, pointers=3, ints=9)
     _nvcc.signature(lib.conv3x3_dw_f32, pointers=4, ints=5)
     _nvcc.signature(lib.conv3x3_dw_bf16, pointers=4, ints=8)
     return lib
@@ -165,13 +175,17 @@ def conv3x3_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return conv3x3_reference(x, w)
     n, _, h, wd = x.shape
     bf16 = x.dtype == torch.bfloat16
+    blocking = (0,) * 5
     if bf16:  # (ky, kx, Co, Ci): rows of Ci for the kernel's 16-byte loads
         w = w.permute(2, 3, 0, 1).contiguous()
+        geo = dw_rows_geometry(n, h, wd)
+        blocking = (geo.strip, geo.rows, geo.units_per_block, geo.blocks,
+                    dw_vector(wd, x))
     y = torch.empty_like(x)
     lib = _lib()
     with torch.cuda.device(x.device):
         err = lib.conv3x3_fwd(x.data_ptr(), w.data_ptr(), y.data_ptr(), n, h,
-                              wd, int(bf16),
+                              wd, int(bf16), *blocking,
                               torch.cuda.current_stream().cuda_stream)
     _nvcc.check(lib, err, "conv3x3_fwd")
     conv3x3_fwd.launches += 1
@@ -189,19 +203,19 @@ def dw_geometry(n: int, h: int, w: int):
 
 
 class DwRows(NamedTuple):
-    """The bf16 dW kernel's blocking (`dw_rows_geometry`)."""
+    """The bf16 dW and forward kernels' blocking (`dw_rows_geometry`)."""
     strip: int            # columns per strip, a multiple of 8, <= DW_STRIP
     strips: int
     rows: int             # output rows per run
     runs: int             # runs per image
     units: int            # (image, strip, run) units, image-major
     units_per_block: int
-    blocks: int           # = the partials dw_reduce sums
+    blocks: int           # = the partials dw_reduce sums (dW)
 
 
 def dw_rows_geometry(n: int, h: int, w: int) -> DwRows:
-    """The bf16 dW kernel's blocking, from the shape alone (the same sum
-    order on every card): column strips of equal width (rounded up to 8,
+    """The blocking of the bf16 dW and forward kernels, from the shape
+    alone (the same sum order on every card): column strips of equal width (rounded up to 8,
     so that every strip starts on a 16-byte boundary), then runs of rows
     so that the units make about DW_BLOCKS blocks (one per image at
     B = 128), then consecutive units per block if there are more."""
@@ -221,6 +235,10 @@ def _round16(v: int) -> int:
     return -(-v // 16) * 16
 
 
+def _round8(v: int) -> int:
+    return -(-v // 8) * 8
+
+
 def dw_row_stride(need: int) -> int:
     """Stride (elements) of a staged bf16 dW row of `need` elements: a
     multiple of 8 whose half is an odd multiple of 4, so that the rows of
@@ -236,9 +254,17 @@ def dw_smem_bytes(w: int) -> int:
                     + 2 * dw_row_stride(wk))
 
 
+def fwd_smem_bytes(w: int) -> int:
+    """Shared memory of the bf16 forward kernel at width w: the resident
+    weights [9][C][WS], X_SLOTS ring rows [Wk + 2][WS] and the landing row
+    [C][DW_PAD + Wk + 8], Wk = the strip rounded up to 8."""
+    wk = _round8(dw_rows_geometry(1, 1, w).strip)
+    return 2 * (9 * C * WS + X_SLOTS * (wk + 2) * WS + C * (wk + 2 * DW_PAD))
+
+
 def dw_vector(w: int, *tensors: torch.Tensor) -> int:
-    """Elements per copy of the bf16 dW staging (16, 8 or 4 bytes, or 2
-    through registers): the most that divides the width and keeps every
+    """Elements per copy of the bf16 row staging, forward and dW (16, 8 or 4
+    bytes, or 2 through registers): the most that divides the width and keeps every
     copy aligned in the given tensors."""
     return next(v for v in (8, 4, 2, 1) if w % v == 0 and all(
         t.data_ptr() % (2 * v) == 0 for t in tensors))

@@ -30,13 +30,14 @@ import torch.nn.functional as F
 
 from msml_torch.kernels import _nvcc
 from msml_torch.kernels.conv3x3 import (DW_BLOCKS, DW_MAX_CHUNKS, DW_PAD,
-                                        DW_STRIP, DW_TILE, MAX_SMEM,
-                                        MAX_WIDTH, conv3x3, conv3x3_dw,
+                                        DW_STRIP, DW_TILE, FWD_WARPS,
+                                        MAX_SMEM, MAX_WIDTH, WS, X_SLOTS,
+                                        conv3x3, conv3x3_dw,
                                         conv3x3_dw_reference, conv3x3_fwd,
                                         conv3x3_reference, dw_geometry,
                                         dw_row_stride, dw_rows_geometry,
                                         dw_smem_bytes, dw_vector,
-                                        flip_weights)
+                                        flip_weights, fwd_smem_bytes)
 from msml_torch.nn.common import Conv3x3, routed_conv_sites
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -255,7 +256,7 @@ def test_dw_geometry_covers_every_tile_once(n, h, w):
 
 
 def _fwd_by_tiles(x, w, bm=128):
-    """fwd_bf16 / fwd_f32's blocking in numpy: tiles of `bm` flattened
+    """fwd_f32's blocking in numpy: tiles of `bm` flattened
     pixels of one image, the staged rows r_lo - 1 .. r_hi + 1 with the
     zero padding, each pixel read at its staged position plus the tap."""
     n, c, h, wd = x.shape
@@ -316,7 +317,7 @@ def _dw_by_tiles(x, dy):
 @pytest.mark.parametrize("n,h,w,bm", [(2, 5, 7, 16), (1, 9, 4, 16),
                                       (1, 3, 40, 32)])
 def test_kernel_tiling_replayed_in_numpy(n, h, w, bm):
-    """The kernels' tile, halo and tail arithmetic gives the plain
+    """The f32 kernels' tile, halo and tail arithmetic gives the plain
     versions' results (small tiles, so that tiles cross image rows)."""
     rng = np.random.RandomState(8)
     x = rng.randn(n, 3, h, w)
@@ -458,6 +459,138 @@ def test_dw_shared_memory_fits_every_width():
     for need in range(1, DW_STRIP + 2 * DW_PAD + 1):
         s = dw_row_stride(need)
         assert s >= need and s % 8 == 0 and (s // 2) % 8 == 4
+
+
+def _round8(v):
+    return -(-v // 8) * 8
+
+
+def _fwd_tiles(wk, warps=FWD_WARPS):
+    """-> [(warp group, n8 tile)] of one output row, as fwd_bf16's warps
+    own them: group ng takes tiles ng, ng + NG, ... (NG = warps / 2; both
+    halves of Co take the same tiles)."""
+    groups = warps // 2
+    return [(ng, ng + j * groups) for ng in range(groups)
+            for j in range(16 // groups) if ng + j * groups < wk // 8]
+
+
+def _fwd_bf16_by_rows(x, w):
+    """fwd_bf16's blocking in numpy, step for step: the units of each
+    block, the channel-major landing row (column c0 - DW_PAD + j at j, zero
+    outside the image), its transpose into the pixel-major ring slot
+    (r - h0 + 1) & 3 (pixel p = column c0 - 1 + p, p < Wk + 2), the rows
+    h0 - 1 .. h1 made in the kernel's order (row h + 2 made before row h is
+    summed), each warp's n8 tiles (N padded to 8), each tap's B operand at
+    pixel w + kx of the slot of row h + ky - 1, and the store mask
+    w < cw. Shared memory and y start as NaN, so that a read of anything
+    not staged shows, and every output is stored once."""
+    n, ci, h, wd = x.shape
+    geo = dw_rows_geometry(n, h, wd)
+    big = _round8(geo.strip)
+    y = np.full((n, w.shape[0], h, wd), np.nan)
+    block = None
+    for b, img, h0, h1, c0, cw in _units(geo, h, wd):
+        if b != block:  # a block's shared memory, unwritten
+            block = b
+            ring = np.full((X_SLOTS, big + 2, WS), np.nan)
+            land = np.full((ci, big + 2 * DW_PAD), np.nan)
+        wk = _round8(cw)
+
+        def slot(r):
+            return (r - h0 + 1) & (X_SLOTS - 1)
+
+        def stage(r):
+            cols = np.arange(c0 - DW_PAD, c0 + wk + DW_PAD)
+            vals = np.zeros((ci, cols.size))
+            ok = (cols >= 0) & (cols < wd)
+            if 0 <= r < h:
+                vals[:, ok] = x[img, :, r, cols[ok]].T
+            land[:, :cols.size] = vals
+
+        def advance(r):
+            for jb in range((wk + 2 * DW_PAD) // 8):
+                for i in range(8):
+                    p = 8 * jb + i - (DW_PAD - 1)
+                    if 0 <= p < wk + 2:
+                        ring[slot(r), p, :ci] = land[:, 8 * jb + i]
+            if r + 1 <= h1:
+                stage(r + 1)
+
+        stage(h0 - 1)
+        for r in (h0 - 1, h0, h0 + 1):
+            advance(r)
+        for row in range(h0, h1):
+            if row + 2 <= h1:
+                advance(row + 2)
+            for _, nt in _fwd_tiles(wk):
+                acc = np.zeros((w.shape[0], 8))
+                for tap in range(9):
+                    ky, kx = divmod(tap, 3)
+                    bt = ring[slot(row + ky - 1),
+                              nt * 8 + kx:nt * 8 + kx + 8, :ci]
+                    acc += w[:, :, ky, kx] @ bt.T
+                for k in range(8):
+                    wc = nt * 8 + k
+                    if wc < cw:
+                        assert np.isnan(y[img, :, row, c0 + wc]).all()
+                        y[img, :, row, c0 + wc] = acc[:, k]
+    return y
+
+
+FWD_ROW_SHAPES = [(1, 1, 1), (1, 2, 3), (2, 5, 17), (1, 7, 28), (2, 3, 56),
+                  (1, 3, 112), (1, 2, 129), (1, 2, 200), (40, 9, 20),
+                  (140, 1, 2)]
+
+
+@pytest.mark.parametrize("part", ["forward", "dx"])
+@pytest.mark.parametrize("n,h,w", FWD_ROW_SHAPES)
+def test_fwd_bf16_rows_replayed_in_numpy(n, h, w, part):
+    """fwd_bf16's runs, strips, landing row, pixel-major ring, halo, tap
+    offsets, n8 tiles and store mask give the plain conv, forward and dX
+    (the kernel on flipped weights), in f64 (odd W, W not a multiple of 8,
+    W > 128 in two strips, runs of several rows, blocks of several
+    units)."""
+    rng = np.random.RandomState(10)
+    x = rng.randn(n, 3, h, w)
+    wt = rng.randn(4, 3, 3, 3)
+    if part == "dx":
+        x = rng.randn(n, 4, h, w)
+        wt = flip_weights(torch.from_numpy(wt)).contiguous().numpy()
+    want = conv3x3_reference(torch.from_numpy(x), torch.from_numpy(wt))
+    np.testing.assert_allclose(_fwd_bf16_by_rows(x, wt), want.numpy(),
+                               atol=1e-10, rtol=0)
+
+
+@pytest.mark.parametrize("n,h,w", [(128, 112, 112), (128, 56, 56),
+                                   (128, 28, 28), (512, 112, 112),
+                                   (512, 28, 28), (3, 13, 17), (2, 5, 200),
+                                   (1, 1, 512), (1, 7, 129), (300, 3, 9),
+                                   (1, 1, 1), (4, 9, 57)])
+def test_fwd_rows_cover_every_output_once(n, h, w):
+    """Every output pixel of every image is stored by exactly one (unit,
+    row, warp group, n8 tile, column) of fwd_bf16; a warp owns at most
+    16 / (FWD_WARPS / 2) tiles of a row (its accumulators)."""
+    geo = dw_rows_geometry(n, h, w)
+    cover = np.zeros((n, h, w), int)
+    for _, img, h0, h1, c0, cw in _units(geo, h, w):
+        tiles = _fwd_tiles(_round8(cw))
+        assert sorted(nt for _, nt in tiles) == list(range(_round8(cw) // 8))
+        per_group = np.bincount([ng for ng, _ in tiles])
+        assert per_group.max() <= 16 // (FWD_WARPS // 2)
+        for _, nt in tiles:
+            cols = [c0 + wc for wc in range(nt * 8, nt * 8 + 8) if wc < cw]
+            cover[img, h0:h1, cols] += 1
+    assert (cover == 1).all()
+
+
+def test_fwd_shared_memory_fits_every_width():
+    """The bf16 forward's resident weights, ring of four pixel rows and
+    landing row fit an H100 block's 232,448 bytes at every width the
+    wrappers take (176,256 at strips of 128); rows stay 16-byte aligned."""
+    sizes = [fwd_smem_bytes(w) for w in range(1, MAX_WIDTH + 1)]
+    assert max(sizes) == fwd_smem_bytes(128) == 176256 <= MAX_SMEM
+    assert fwd_smem_bytes(112) == 2 * (9 * 64 * 72 + 4 * 114 * 72 + 64 * 128)
+    assert (WS * 2) % 16 == 0 and (WS // 2) % 32 == 4
 
 
 def test_dw_vector_keeps_copies_aligned():

@@ -211,6 +211,40 @@ def test_conv3x3_dw_bf16_rows_match_plain(cuda, shape, offset):
     assert torch.equal(dw, again)
 
 
+FWD_BF16_SHAPES = [(4, 112, 112), (4, 56, 56), (4, 28, 28), (4, 9, 17),
+                   (4, 27, 28), (4, 7, 57), (2, 5, 113), (2, 4, 200),
+                   (140, 3, 8)]
+
+
+@pytest.mark.parametrize("shape", FWD_BF16_SHAPES)
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset"])
+def test_conv3x3_fwd_bf16_rows_match_plain(cuda, shape, offset):
+    """The bf16 forward kernel (persistent row ring, strips, every staging
+    width: tensors one element past an aligned address take the 2-byte
+    path; odd W stores one element at a time), forward and dX, against the
+    plain version in f32: relative L2 error <= 5e-3 (one rounding of the
+    output); two runs bit-equal."""
+    from msml_torch.kernels.conv3x3 import (conv3x3_fwd, conv3x3_reference,
+                                            dw_vector, flip_weights)
+
+    n, h, w = shape
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    numel = n * 64 * h * w
+    x, dy = (torch.randn((numel + offset,), generator=gen, device=cuda)
+             .to(torch.bfloat16)[offset:].view(n, 64, h, w) for _ in range(2))
+    assert offset == 0 or dw_vector(w, x, dy) == 1
+    wt = (torch.randn((64, 64, 3, 3), generator=gen, device=cuda)
+          / 24).to(torch.bfloat16)
+    wf = flip_weights(wt).contiguous()
+    f0 = conv3x3_fwd.launches
+    y, again, dx = conv3x3_fwd(x, wt), conv3x3_fwd(x, wt), conv3x3_fwd(dy, wf)
+    torch.cuda.synchronize()
+    assert conv3x3_fwd.launches == f0 + 3
+    assert _rel(y, conv3x3_reference(x.float(), wt.float())) <= 5e-3
+    assert _rel(dx, conv3x3_reference(dy.float(), wf.float())) <= 5e-3
+    assert torch.equal(y, again)
+
+
 def test_conv3x3_autograd_under_autocast(cuda):
     """A routed Conv3x3 under bf16 autocast: bf16 output and dX, f32 weight
     gradient; against F.conv2d under the same autocast (cuDNN), relative L2
