@@ -107,6 +107,7 @@ DALPHA_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-3}  # relative L2
 BF16_MIN_COS = 0.99     # bf16 vs f32 feature cosine
 CPU_MIN_COS = 0.9999    # card f32 (TF32 off) vs CPU f32 feature cosine
 MAIN_PATH = dict(lo=40, hi=41, fill="black", relight=False, use_norm=True)
+AUGMENT_ODD = ((4, 112, 17, 3), (4, 9, 112, 1), (4, 113, 112, 3))  # (B, H, W, C)
 
 
 def fail(msg: str):
@@ -152,34 +153,107 @@ def phase_device() -> str:
 
 
 def phase_build():
-    """Build the CUDA kernels (the first conv3x3 use would) and show it."""
-    from msml_torch.kernels import _nvcc, conv3x3
+    """Build the CUDA kernels (their first use would), one nvcc per source,
+    all started together, and show each build."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from msml_torch.kernels import _nvcc, augment, conv3x3
 
     t0 = time.perf_counter()
-    conv3x3._lib()
-    seconds = time.perf_counter() - t0
-    info = _nvcc.builds.get("conv3x3")
-    if info is None:  # a library of the same sources and flags was there
-        print(f"[1 build] csrc/conv3x3.cu already built in "
-              f"{_nvcc.BUILD_DIR}; loaded in {seconds:.1f} s")
-        return
-    print(f"[1 build] nvcc built csrc/conv3x3.cu in {info['seconds']:.1f} s "
-          f"({seconds:.1f} s with loading); {info['nvcc']}")
-    kernel, spills = None, []
-    for line in info["log"].splitlines():
-        if "Compiling entry function" in line:
-            m = re.search(r"(fwd_bf16|fwd_f32|dw_bf16|dw_f32|dw_reduce)"
-                          r"(?:I((?:Li\d+E)+)E)?", line)
-            args = re.findall(r"Li(\d+)E", m.group(2) or "") if m else []
-            kernel = (m.group(1) + (f"<{', '.join(args)}>" if args else "")
-                      if m else line)
-        elif kernel and ("registers" in line or "spill" in line):
-            print(f"[1 build]   {kernel}: {line.strip()}")
-            if kernel.startswith(("fwd_bf16", "dw_bf16")) and re.search(
-                    r"[1-9]\d* bytes spill", line):
-                spills.append(kernel)
+    with ThreadPoolExecutor(2) as pool:
+        list(pool.map(lambda lib: lib(), (conv3x3._lib, augment._lib)))
+    print(f"[1 build] csrc/conv3x3.cu and csrc/augment.cu loaded in "
+          f"{time.perf_counter() - t0:.1f} s (built side by side)")
+    spills = []
+    for name in ("conv3x3", "augment"):
+        info = _nvcc.builds.get(name)
+        if info is None:  # a library of the same sources and flags was there
+            print(f"[1 build] csrc/{name}.cu already built in "
+                  f"{_nvcc.BUILD_DIR}")
+            continue
+        print(f"[1 build] nvcc built csrc/{name}.cu in "
+              f"{info['seconds']:.1f} s; {info['nvcc']}")
+        kernel = None
+        for line in info["log"].splitlines():
+            if "Compiling entry function" in line:
+                m = re.search(r"(fwd_bf16|fwd_f32|dw_bf16|dw_f32|dw_reduce|"
+                              r"augment_cluster)(?:I((?:L[ib]\d+E)+)E)?",
+                              line)
+                args = re.findall(r"L[ib](\d+)E", m.group(2) or "") if m \
+                    else []
+                kernel = (m.group(1) + (f"<{', '.join(args)}>" if args
+                                        else "") if m else line)
+            elif kernel and ("registers" in line or "spill" in line):
+                print(f"[1 build]   {kernel}: {line.strip()}")
+                if kernel.startswith(("fwd_bf16", "dw_bf16",
+                                      "augment_cluster")) and re.search(
+                        r"[1-9]\d* bytes spill", line):
+                    spills.append(kernel)
+    geo = {k: augment.augment_geometry(b, H, W, 3, dt)
+           for k, b, dt in (("f32 B=512", B, torch.float32),
+                            ("uint8 B=128", B_TRAIN, torch.uint8))}
+    print("[1 build]   augment_cluster<U8, RELIGHT> dynamic shared memory: "
+          + "; ".join(f"{k} {g.smem} B a block, {g.blocks} blocks of "
+                      f"{augment.THREADS} threads, clusters of {g.cluster}"
+                      for k, g in geo.items()))
     if spills:
         fail(f"{sorted(set(spills))} spill registers")
+
+
+def offset_copy(x: torch.Tensor, offset: int) -> torch.Tensor:
+    """A contiguous copy of x that starts `offset` elements past an aligned
+    address."""
+    flat = torch.empty((x.numel() + offset,), dtype=x.dtype, device=x.device)
+    return flat[offset:].view(x.shape).copy_(x)
+
+
+def check_augment_odd(gen, dtype) -> float:
+    """augment_batch against the plain version at odd shapes, each on an
+    aligned input and on one that starts one element off, over the fills,
+    relight on and off, no block and a block; returns the max abs diff."""
+    from msml_torch.kernels.augment import (augment_batch,
+                                            augment_batch_reference)
+
+    worst = 0.0
+    for (b, h, w, c), offset in itertools.product(AUGMENT_ODD, (0, 1)):
+        img = torch.rand((b, h, w, c), generator=gen, device="cuda")
+        if dtype == torch.uint8:
+            img = (img * 256).to(torch.uint8)
+        img = offset_copy(img, offset)
+        noise = torch.randn(img.shape, generator=gen, device="cuda")
+        draws = torch.rand((b, 6), generator=gen, device="cuda")
+        for fill, relight, (lo, hi) in itertools.product(
+                ("black", "white", "gauss"), (True, False),
+                ((0, 1), (20, 51))):
+            kw = dict(lo=lo, hi=hi, fill=fill, relight=relight,
+                      use_norm=True)
+            err = (augment_batch(img, draws, noise, **kw)
+                   - augment_batch_reference(img, draws, noise, **kw)
+                   ).abs().max().item()
+            if not err <= KERNEL_TOL:
+                fail(f"augment {dtype} {(b, h, w, c)} offset {offset}: max "
+                     f"abs diff {err} at {kw}")
+            worst = max(worst, err)
+    return worst
+
+
+def augment_bytes(img, draws, kw) -> int:
+    """Bytes `augment_batch` must move: the image read once, the f32 NCHW
+    output written once, the draws, and, for the gauss fill, the noise
+    inside each image's square (the only noise it reads)."""
+    b, h, w, c = img.shape
+    moved = img.numel() * (img.element_size() + 4) + draws.numel() * 4
+    if kw["fill"] == "gauss" and (kw["hi"] > 1 or kw["lo"] > 0):
+        r0 = draws[:, 0].double().cpu()
+        ratio = (kw["lo"] + torch.floor(r0 * (kw["hi"] - kw["lo"]))) * 0.01
+        side = torch.floor(torch.sqrt(ratio) * w).clamp(max=min(h, w))
+        moved += int((side * side).sum()) * c * 4
+    return moved
+
+
+def check_bit_equal(fn, what: str):
+    if not torch.equal(fn(), fn()):
+        fail(f"augment_batch {what}: two runs differ")
 
 
 def phase_kernel(seed: int) -> dict:
@@ -204,8 +278,12 @@ def phase_kernel(seed: int) -> dict:
                 fail(f"kernel vs plain max abs diff {err} at C={c} {kw}")
             max_err = max(max_err, err)
         torch.cuda.synchronize()
-    print(f"[2 kernel] 72 option sets, C in (3, 1): max abs diff {max_err} "
-          f"(tolerance {KERNEL_TOL})")
+    odd_err = check_augment_odd(gen, torch.float32)
+    print(f"[2 kernel] 72 option sets, C in (3, 1): max abs diff {max_err}; "
+          f"odd shapes {AUGMENT_ODD}, aligned and one element off, 12 "
+          f"option sets each: max abs diff {odd_err} (tolerance "
+          f"{KERNEL_TOL})")
+    max_err = max(max_err, odd_err)
 
     draws = torch.rand((B, 6), generator=gen, device="cuda")
     flat = torch.full((B, H, W, 3), 0.5, device="cuda")
@@ -218,7 +296,7 @@ def phase_kernel(seed: int) -> dict:
             fail(f"block area {area.unique().tolist()} != {want} "
                  f"(relight={relight})")
     print(f"[2 kernel] block area at ratio 0.40: {want} px in all {B} "
-          "images")
+          "images, relight off and on")
 
     img = torch.rand((B, H, W, 3), generator=gen, device="cuda")
     noise = torch.randn(img.shape, generator=gen, device="cuda")
@@ -226,8 +304,8 @@ def phase_kernel(seed: int) -> dict:
     for name, kw in (("main path", MAIN_PATH),
                      ("relight", dict(MAIN_PATH, relight=True)),
                      ("gauss", dict(MAIN_PATH, fill="gauss"))):
-        moved = 2 * img.numel() * 4 + draws.numel() * 4 \
-            + (noise.numel() * 4 if kw["fill"] == "gauss" else 0)
+        check_bit_equal(lambda: augment_batch(img, draws, noise, **kw), name)
+        moved = augment_bytes(img, draws, kw)
         ms = time_ms(lambda: augment_batch(img, draws, noise, **kw))
         plain_ms = time_ms(
             lambda: augment_batch_reference(img, draws, noise, **kw))
@@ -235,13 +313,17 @@ def phase_kernel(seed: int) -> dict:
         timed[name] = (ms, plain_ms, bound_ms)
         print(f"[2 kernel] {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms), "
               f"{moved / 1e6:.1f} MB moved, bound {bound_ms:.4f} ms = "
-              f"{bound_ms / ms:.1%} of the memory rate")
+              f"{bound_ms / ms:.1%} of the memory rate; two runs bit-equal")
     ms, plain_ms, bound_ms = timed["main path"]
-    return {"name": "augment_batch", "route": "triton",
-            "source": "msml_torch/kernels/augment.py",
+    return {"name": "augment_batch", "route": "cuda",
+            "source": "msml_torch/csrc/augment.cu",
             "replaces": "msml_tpu/kernels/augment.py:131",
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
+            "relight": dict(zip(("ms", "plain_ms", "bound_ms"),
+                                timed["relight"])),
+            "gauss": dict(zip(("ms", "plain_ms", "bound_ms"),
+                              timed["gauss"]))}
 
 
 def phase_kernel_uint8(seed: int) -> dict:
@@ -267,18 +349,67 @@ def phase_kernel_uint8(seed: int) -> dict:
             fail(f"uint8 kernel vs plain max abs diff {err} at {kw}")
         max_err = max(max_err, err)
     torch.cuda.synchronize()
-    train = dict(relight=True, use_norm=True)  # device_input_stage
-    moved = img.numel() * (1 + 4) + draws.numel() * 4
+    odd_err = check_augment_odd(gen, torch.uint8)
+    flat = torch.full((B_TRAIN, H, W, 3), 128, dtype=torch.uint8,
+                      device="cuda")
+    want = math.floor(math.sqrt(0.40) * W) ** 2
+    for relight in (False, True):
+        out = augment_batch(flat, draws, lo=40, hi=41, fill="black",
+                            relight=relight, use_norm=False)
+        area = (out == 0).all(dim=1).sum(dim=(1, 2))
+        if not bool((area == want).all()):
+            fail(f"uint8 block area {area.unique().tolist()} != {want} "
+                 f"(relight={relight})")
+    train = dict(lo=0, hi=1, fill="black", relight=True,
+                 use_norm=True)  # device_input_stage
+    check_bit_equal(lambda: augment_batch(img, draws, **train), "uint8")
+    moved = augment_bytes(img, draws, train)
     ms = time_ms(lambda: augment_batch(img, draws, **train))
     plain_ms = time_ms(lambda: augment_batch_reference(img, draws, **train))
     bound_ms = moved / HBM_BYTES_PER_S * 1e3
     print(f"[2b uint8] 16 option sets at B={B_TRAIN}: max abs diff "
-          f"{max_err} (tolerance {KERNEL_TOL}); input stage (relight + "
-          f"normalize) {ms:.4f} ms (plain {plain_ms:.4f} ms), "
-          f"{moved / 1e6:.1f} MB moved, bound {bound_ms:.4f} ms = "
-          f"{bound_ms / ms:.1%} of the memory rate")
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms}
+          f"{max_err}; odd shapes {AUGMENT_ODD}, aligned and one element "
+          f"off: {odd_err} (tolerance {KERNEL_TOL}); block area {want} px, "
+          f"relight off and on; input stage (relight + normalize) "
+          f"{ms:.4f} ms (plain {plain_ms:.4f} ms), {moved / 1e6:.1f} MB "
+          f"moved, bound {bound_ms:.4f} ms = {bound_ms / ms:.1%} of the "
+          "memory rate; two runs bit-equal")
+    return {"max_abs_err": max(max_err, odd_err), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms}
+
+
+def phase_augment_variants(seed: int):
+    """The Triton kernel that the cluster kernel replaces, and the cluster
+    kernel at K = 4, 8 and 16 blocks per image, timed in turns at the four
+    augment modes."""
+    from msml_torch.kernels import augment
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 9)
+    f32 = torch.rand((B, H, W, 3), generator=gen, device="cuda")
+    u8 = torch.randint(0, 256, (B_TRAIN, H, W, 3), generator=gen,
+                       device="cuda", dtype=torch.uint8)
+    modes = {"main path": (f32, MAIN_PATH),
+             "relight": (f32, dict(MAIN_PATH, relight=True)),
+             "gauss": (f32, dict(MAIN_PATH, fill="gauss")),
+             "uint8 stage": (u8, dict(lo=0, hi=1, fill="black",
+                                      relight=True, use_norm=True))}
+    for name, (img, kw) in modes.items():
+        draws = torch.rand((img.shape[0], 6), generator=gen, device="cuda")
+        noise = torch.randn(img.shape, generator=gen, device="cuda")
+        bound = augment_bytes(img, draws, kw) / HBM_BYTES_PER_S * 1e3
+        row = []
+        for label in ("triton", 8, 4, 16, 8, "triton"):
+            if label == "triton":
+                fn = lambda: augment._augment_batch_triton(img, draws,
+                                                           noise, **kw)
+            else:
+                augment.CLUSTER = label
+                fn = lambda: augment.augment_batch(img, draws, noise, **kw)
+            row.append(f"{label if label == 'triton' else f'K={label}'} "
+                       f"{time_ms(fn):.4f}")
+        augment.CLUSTER = 8
+        print(f"[2 variants] {name} (bound {bound:.4f} ms): "
+              + ", ".join(row) + " ms")
 
 
 def prelu_sites(seed: int):
@@ -769,8 +900,8 @@ def profile_train(run_step, step_ms: float, steps: int = 4):
           f"step, {len(kernels)} kernel names")
     groups = {"conv3x3 (CUDA)": ("fwd_bf16", "fwd_f32", "dw_bf16", "dw_f32",
                                  "dw_reduce"),
-              "prelu (Triton)": ("_prelu_",), "augment (Triton)": (
-        "_augment_kernel",), "conv / gemm": ("conv", "gemm", "xmma", "sm90",
+              "prelu (Triton)": ("_prelu_",), "augment (CUDA)": (
+        "augment_cluster",), "conv / gemm": ("conv", "gemm", "xmma", "sm90",
                                              "cutlass", "implicit"),
               "batch norm": ("batch_norm", "bn_", "welford"),
               "optimizer": ("multi_tensor", "foreach")}
@@ -944,6 +1075,7 @@ def main(argv=None):
     phase_build()
     augment_entry = phase_kernel(args.seed)
     uint8 = phase_kernel_uint8(args.seed)
+    phase_augment_variants(args.seed)
     prelu_entries = phase_kernel_prelu(args.seed)
     conv_entries = phase_kernel_conv(args.seed)
     model, eval_img_s = phase_model(args.seed)

@@ -1,12 +1,13 @@
 """On-device augmentation: random block occlusion + Gaussian relight +
-normalize, fused in one Triton kernel for Hopper.
+normalize, fused in one CUDA C++ kernel for Hopper (`csrc/augment.cu`).
 
 Replaces the Pallas kernel `msml_tpu/kernels/augment.py::_gauss_block_kernel`
-(launched by `pallas_augment_batch`, augment.py:131-211) and its jnp twins:
-`device_augment_batch` (augment.py:92-110), which the on-device occlusion
-sweep calls, and `device_input_stage` (augment.py:27-61), the training
-input stage of `device_light` mode. Per image, with six uniform draws r0..r5
-(augment.py:144-149), after a uint8 image is divided by 255 in f32:
+(launched by `pallas_augment_batch`, augment.py:131-211, `pallas_call` at
+:202) and its jnp twins: `device_augment_batch` (augment.py:92-110), which
+the on-device occlusion sweep calls, and `device_input_stage`
+(augment.py:27-61), the training input stage of `device_light` mode. Per
+image, with six uniform draws r0..r5 (augment.py:144-149), after a uint8
+image is divided by 255 in f32:
   1. block fill: ratio = (lo + floor(r0 (hi - lo))) / 100,
      bw = floor(sqrt(ratio) W), x0 = floor(r1 (W - bw + 1)),
      y0 = floor(r2 (W - bw + 1)) (W for both, as the reference draws it);
@@ -25,17 +26,37 @@ Differences from the TPU kernel, by design:
   * It reads NHWC and writes NCHW, the model's layout, in the same pass.
 
 Bound on the card: memory. Each element costs ~10 flops against 8 bytes
-(read + write, 12 with gauss noise; 5 for a uint8 image), so the least time
+(read + write; 5 for a uint8 image, 12 with gauss noise), so the least time
 is the bytes over the HBM rate: at B = 512, 112 x 112 x 3 f32, 77.1 MB read
-+ 77.1 MB written.
-Design: one program per image. A tile is (rows, W, C) padded to powers of
-two, so the NHWC load runs along C and the NCHW store along W and Triton
-coalesces both (a first version with flat (rows, W*C) tiles scattered its
-stores and took 4x longer). With relight, a first loop over the row tiles
-finds the relit image's max; the second recomputes each tile, scales,
-normalizes and stores, reading the image a second time.
++ 77.1 MB written; the uint8 training stage at B = 128, 4.8 + 19.3 MB.
 
-`augment_batch` takes the Triton kernel for a CUDA tensor and the plain
+Design: one thread-block cluster per image (`augment_geometry`). The relit
+image is divided by its own maximum, so no output can be written before
+the whole image has been seen; a kernel with one block per image (the
+Triton kernel this replaces) walks its image in serial tiles and, with
+relight, reads it twice, with only B blocks in flight. Here K = 8 blocks
+(fewer for images under 8 rows) share each image. Block (b, k) owns a band
+of ceil(H / K) rows, one contiguous NHWC run: it copies the band into
+shared memory once (`cp.async`, 16 bytes a copy where the pointers and the
+band's offset allow it, else 8, 4, or one element), applies the fill and
+the light per pixel into a channel-major tile [C][rows * W] (the
+NHWC -> NCHW transpose, done once in shared memory), and, with relight,
+reduces the band's maximum and exchanges it with the other K - 1 blocks of
+its cluster through distributed shared memory (one cluster barrier, reads
+of the peers' slots, and a second barrier before exit so that no block
+leaves while a peer reads its slot). Then it scales, normalizes and writes
+the band's C runs of the NCHW output along W, 16 bytes a store where
+aligned. The image is read once and written once, with B * K blocks in
+flight. Without relight there is no exchange, and the launch has no
+cluster. In the tile, the 32 lanes of a warp write one channel of 32
+consecutive pixels (32 consecutive words) and read the staged pixels at a
+stride of C words, C odd, so neither side has a bank conflict and the
+planes need no padding beyond a multiple of 4 floats (16-byte reads). The
+f32 arithmetic follows the plain version's order operation by operation
+(IEEE `sqrtf` and division; no contraction into FMA where it decides a
+pixel of the square), so the square's edges match it to the pixel.
+
+`augment_batch` launches the kernel for a CUDA tensor and runs the plain
 PyTorch version `augment_batch_reference` for a CPU tensor; a failure to
 build or launch the kernel raises.
 """
@@ -44,16 +65,67 @@ from __future__ import annotations
 
 import functools
 import os
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
+from msml_torch.kernels import _nvcc
+
 FILLS = {"black": 0, "white": 1, "gauss": 2}
+CLUSTER = 8         # blocks per image: the portable maximum cluster size
+THREADS = 256       # a block's threads (csrc/augment.cu THREADS)
+SCRATCH = 16        # floats of shared memory after the band (csrc SCRATCH)
+MAX_SMEM = 232448   # an H100 block's opt-in shared memory, bytes
 _TRITON_CACHE = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "_build", "triton")
 _TILE = 4096  # elements per tile (padded): 8 rows of 128 x 4 for RGB
 
 tl = None  # triton.language, bound by _kernel() at the first launch
+
+
+class AugmentGeometry(NamedTuple):
+    cluster: int    # K: blocks per image, the cluster's size
+    rows: int       # image rows in a block's band, ceil(H / K)
+    vec: int        # bytes per copy of the band into shared memory
+    store_vec: int  # floats per store of the NCHW output
+    plane: int      # floats between the channel planes of the tile
+    smem: int       # dynamic shared memory per block, bytes
+    blocks: int     # B * K
+
+
+def _round(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def augment_geometry(b: int, h: int, w: int, c: int, dtype: torch.dtype,
+                     *tensors: torch.Tensor) -> AugmentGeometry:
+    """The kernel's blocking for B images of (H, W, C) in `dtype` (float32
+    or uint8): K = min(8, H) blocks per image, bands of ceil(H / K) rows;
+    the widest copy (16, 8 or 4 bytes, else one element) that divides an
+    image's bytes, a band's bytes and the address of each of `tensors`;
+    the widest store (4, 2 or 1 floats) that divides H W and a band's
+    pixels; and the shared memory of a block: the tile (C planes), the
+    staged band and the scratch floats.
+
+    Raises ValueError when a band does not fit in a block's shared memory.
+    """
+    esize = 1 if dtype == torch.uint8 else 4
+    k = min(CLUSTER, h)
+    rows = -(-h // k)
+    band = rows * w * c * esize
+    vec = next(v for v in (16, 8, 4, esize)
+               if h * w * c * esize % v == 0 and band % v == 0
+               and all(t.data_ptr() % v == 0 for t in tensors))
+    store_vec = next(v for v in (4, 2, 1)
+                     if h * w % v == 0 and rows * w % v == 0)
+    plane = _round(rows * w, 4)
+    smem = 4 * c * plane + _round(band, 16) + 4 * SCRATCH
+    if smem > MAX_SMEM:
+        raise ValueError(
+            f"augment_batch: a band of {rows} rows of ({w}, {c}) needs "
+            f"{smem} bytes of shared memory per block, above the limit of "
+            f"{MAX_SMEM} (H = {h} over K = {k} blocks per image)")
+    return AugmentGeometry(k, rows, vec, store_vec, plane, smem, b * k)
 
 
 def _check_args(img: torch.Tensor, draws: torch.Tensor,
@@ -117,6 +189,12 @@ def augment_batch_reference(img: torch.Tensor, draws: torch.Tensor,
     return out.permute(0, 3, 1, 2).contiguous()
 
 
+def _lib():
+    lib = _nvcc.load("augment")
+    _nvcc.signature(lib.augment_batch, pointers=4, ints=17)
+    return lib
+
+
 def augment_batch(img: torch.Tensor, draws: torch.Tensor,
                   noise: Optional[torch.Tensor] = None, *, lo: int = 0,
                   hi: int = 1, fill: str = "black", relight: bool = False,
@@ -126,7 +204,7 @@ def augment_batch(img: torch.Tensor, draws: torch.Tensor,
     (B, C, H, W) f32. `draws`: (B, 6) uniforms in [0, 1); `noise`: unit
     normals shaped like `img`, read only by the gauss fill.
 
-    CUDA tensors run the Triton kernel, CPU tensors the plain version."""
+    CUDA tensors run the CUDA kernel, CPU tensors the plain version."""
     if img.device.type == "cpu":
         return augment_batch_reference(img, draws, noise, lo=lo, hi=hi,
                                        fill=fill, relight=relight,
@@ -136,8 +214,34 @@ def augment_batch(img: torch.Tensor, draws: torch.Tensor,
     has_block = _check_args(img, draws, noise, lo, hi, fill)
     b, h, w, c = img.shape
     out = torch.empty((b, c, h, w), dtype=torch.float32, device=img.device)
-    if b == 0:
+    if out.numel() == 0:
         return out
+    geo = augment_geometry(b, h, w, c, img.dtype, img)
+    gauss = fill == "gauss" and has_block
+    lib = _lib()
+    with torch.cuda.device(img.device):
+        err = lib.augment_batch(
+            img.data_ptr(), draws.data_ptr(),
+            noise.data_ptr() if gauss else None, out.data_ptr(), b, h, w, c,
+            int(img.dtype == torch.uint8), geo.cluster, geo.rows, geo.vec,
+            geo.store_vec, geo.plane, geo.smem, lo, hi, FILLS[fill],
+            int(has_block), int(relight), int(use_norm),
+            torch.cuda.current_stream().cuda_stream)
+    _nvcc.check(lib, err, "augment_batch")
+    augment_batch.launches += 1
+    return out
+
+
+def _augment_batch_triton(img: torch.Tensor, draws: torch.Tensor,
+                          noise: Optional[torch.Tensor] = None, *,
+                          lo: int = 0, hi: int = 1, fill: str = "black",
+                          relight: bool = False,
+                          use_norm: bool = True) -> torch.Tensor:
+    """The Triton kernel that the CUDA kernel replaces (one program per
+    image), kept to be timed beside it; counts no launch."""
+    has_block = _check_args(img, draws, noise, lo, hi, fill)
+    b, h, w, c = img.shape
+    out = torch.empty((b, c, h, w), dtype=torch.float32, device=img.device)
     block_w = 1 << (w - 1).bit_length()
     block_c = max(2, 1 << (c - 1).bit_length())  # gray pads C to 2
     rows = max(1, _TILE // (block_w * block_c))
@@ -148,7 +252,6 @@ def augment_batch(img: torch.Tensor, draws: torch.Tensor,
             C=c, LO=lo, HI=hi, FILL=FILLS[fill], HAS_BLOCK=has_block,
             RELIGHT=relight, USE_NORM=use_norm, U8=img.dtype == torch.uint8,
             ROWS=rows, BLOCK_W=block_w, BLOCK_C=block_c, num_warps=4)
-    augment_batch.launches += 1
     return out
 
 

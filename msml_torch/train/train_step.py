@@ -5,7 +5,7 @@ device, so without collectives (JAX's pmeans over one device change
 nothing). One step:
   1. the `device_light` input stage on the uint8 batch (:245-251): /255,
      Gaussian relight with draws from the state's generator, normalize,
-     NHWC -> NCHW, in the Triton `augment_batch` kernel;
+     NHWC -> NCHW, in the CUDA `augment_batch` kernel;
   2. the forward under the config's precision policy (bf16 autocast for
      `fp16: true`), BatchNorm in train mode updating its running stats;
   3. the f32 log-softmax CE mean (:288-291) and the consensus loss of

@@ -85,6 +85,33 @@ def test_augment_kernel_uint8_matches_plain(cuda, fill):
         rtol=0)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.uint8])
+@pytest.mark.parametrize("shape", [(3, 113, 17, 3), (5, 9, 21, 1)])
+def test_augment_kernel_odd_misaligned(cuda, shape, dtype):
+    """Odd H and W (copies of one element or 8 bytes, stores of one or two
+    floats, empty bands at H = 9) on an input that starts one element
+    past an aligned address, and two runs bit-equal."""
+    from msml_torch.kernels.augment import (augment_batch,
+                                            augment_batch_reference)
+
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.rand(shape, generator=gen, device=cuda)
+    if dtype == torch.uint8:
+        x = (x * 256).to(torch.uint8)
+    flat = torch.empty(x.numel() + 1, dtype=dtype, device=cuda)
+    img = flat[1:].view(shape).copy_(x)
+    noise = torch.randn(shape, generator=gen, device=cuda)
+    draws = torch.rand((shape[0], 6), generator=gen, device=cuda)
+    for fill, relight in itertools.product(("black", "white", "gauss"),
+                                           (False, True)):
+        kw = dict(lo=20, hi=51, fill=fill, relight=relight)
+        out = augment_batch(img, draws, noise, **kw)
+        torch.testing.assert_close(
+            out, augment_batch_reference(img, draws, noise, **kw),
+            atol=1e-5, rtol=0)
+        assert torch.equal(out, augment_batch(img, draws, noise, **kw))
+
+
 PRELU_SHAPES = [(64, 112, 112), (32, 56, 56), (256, 14, 14), (512, 7, 7),
                 (512, 4, 4), (5, 3, 3)]
 
