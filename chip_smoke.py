@@ -5,15 +5,21 @@
 Phases:
   1. device: the card's name and power limit, torch / CUDA / Triton versions
      (the card must be an H100 80GB HBM3: the bounds assume it); then the
-     build of the CUDA kernels (`nvcc` into msml_torch/_build/cuda): its
-     time, the `nvcc --version` line and ptxas's registers and spills (a
-     bf16 forward or dW kernel that spills fails);
+     build of the CUDA kernels (`nvcc` into msml_torch/_build/cuda, one
+     process per source, side by side): each build's time, the `nvcc
+     --version` line and ptxas's registers and spills (an augment, bf16
+     forward or dW kernel that spills fails), and the augment kernel's
+     shared memory and the clusters the card holds at once;
   2. kernel: each kernel against its plain PyTorch version, and its time
      beside its bound:
      a. `augment_batch` at B = 512, 112 x 112 f32, over every option it
-        takes (max abs diff <= 1e-5), and the exact block area;
+        takes (max abs diff <= 1e-5), at odd shapes (W = 17; H = 9 with
+        C = 1; H = 113) on aligned inputs and on inputs one element off,
+        the exact block area with relight off and on, two runs bit-equal;
+        times (CUDA graphs of the launches, so that the host's time per
+        call is out of them) of the sweep's path, relight and gauss;
      b. `augment_batch` on uint8 images at B = 128, the training input
-        stage (max abs diff <= 1e-5);
+        stage: the same checks, and its time with and without relight;
      c. `prelu_fwd` / `prelu_bwd` at every distinct PReLU shape of
         arc18_msml at B = 128, bf16 and f32: y and dx exactly equal, dalpha
         relative L2 error <= 1e-5 (f32) or 1e-3 (bf16); times at the
@@ -138,6 +144,35 @@ def time_ms(fn, windows: int = 5, per_window: int = 20) -> float:
     return statistics.median(times)
 
 
+def time_graph_ms(fns, windows: int = 5) -> float:
+    """Device time per call of the calls `fns` (one per distinct input, so
+    that the inputs and the outputs do not stay in L2), captured once in a
+    CUDA graph: median over `windows` replays, by CUDA events. A kernel of
+    tens of microseconds takes less than its wrapper's host time, so calls
+    made back to back from Python would time the host."""
+    for fn in fns:  # builds, compiles and the allocator's first blocks
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for fn in fns:
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / len(fns))
+    del graph
+    torch.cuda.empty_cache()
+    return statistics.median(times)
+
+
 def phase_device() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -189,13 +224,16 @@ def phase_build():
                                       "augment_cluster")) and re.search(
                         r"[1-9]\d* bytes spill", line):
                     spills.append(kernel)
-    geo = {k: augment.augment_geometry(b, H, W, 3, dt)
+    geo = {k: augment.augment_geometry(b, H, W, 3, dt, relight=True)
            for k, b, dt in (("f32 B=512", B, torch.float32),
                             ("uint8 B=128", B_TRAIN, torch.uint8))}
-    print("[1 build]   augment_cluster<U8, RELIGHT> dynamic shared memory: "
-          + "; ".join(f"{k} {g.smem} B a block, {g.blocks} blocks of "
-                      f"{augment.THREADS} threads, clusters of {g.cluster}"
-                      for k, g in geo.items()))
+    print("[1 build]   augment_cluster<U8, RELIGHT>: " + "; ".join(
+        f"{k} {g.smem} B of dynamic shared memory a block, {g.blocks} "
+        f"blocks of {augment.THREADS} threads, clusters of {g.cluster}; "
+        "resident at once: {} clusters (relight), {} blocks a SM "
+        "(no relight)".format(*augment.augment_occupancy(
+            g, torch.uint8 if "uint8" in k else torch.float32))
+        for k, g in geo.items()))
     if spills:
         fail(f"{sorted(set(spills))} spill registers")
 
@@ -298,7 +336,9 @@ def phase_kernel(seed: int) -> dict:
     print(f"[2 kernel] block area at ratio 0.40: {want} px in all {B} "
           "images, relight off and on")
 
-    img = torch.rand((B, H, W, 3), generator=gen, device="cuda")
+    imgs = [torch.rand((B, H, W, 3), generator=gen, device="cuda")
+            for _ in range(3)]
+    img = imgs[0]
     noise = torch.randn(img.shape, generator=gen, device="cuda")
     timed = {}
     for name, kw in (("main path", MAIN_PATH),
@@ -306,7 +346,8 @@ def phase_kernel(seed: int) -> dict:
                      ("gauss", dict(MAIN_PATH, fill="gauss"))):
         check_bit_equal(lambda: augment_batch(img, draws, noise, **kw), name)
         moved = augment_bytes(img, draws, kw)
-        ms = time_ms(lambda: augment_batch(img, draws, noise, **kw))
+        ms = time_graph_ms([lambda x=x: augment_batch(x, draws, noise, **kw)
+                            for x in imgs])
         plain_ms = time_ms(
             lambda: augment_batch_reference(img, draws, noise, **kw))
         bound_ms = moved / HBM_BYTES_PER_S * 1e3
@@ -364,7 +405,12 @@ def phase_kernel_uint8(seed: int) -> dict:
                  use_norm=True)  # device_input_stage
     check_bit_equal(lambda: augment_batch(img, draws, **train), "uint8")
     moved = augment_bytes(img, draws, train)
-    ms = time_ms(lambda: augment_batch(img, draws, **train))
+    imgs = [torch.randint(0, 256, img.shape, generator=gen, device="cuda",
+                          dtype=torch.uint8) for _ in range(12)]
+    ms = time_graph_ms([lambda x=x: augment_batch(x, draws, **train)
+                        for x in imgs])
+    norm_ms = time_graph_ms([lambda x=x: augment_batch(
+        x, draws, **dict(train, relight=False)) for x in imgs])
     plain_ms = time_ms(lambda: augment_batch_reference(img, draws, **train))
     bound_ms = moved / HBM_BYTES_PER_S * 1e3
     print(f"[2b uint8] 16 option sets at B={B_TRAIN}: max abs diff "
@@ -373,41 +419,40 @@ def phase_kernel_uint8(seed: int) -> dict:
           f"relight off and on; input stage (relight + normalize) "
           f"{ms:.4f} ms (plain {plain_ms:.4f} ms), {moved / 1e6:.1f} MB "
           f"moved, bound {bound_ms:.4f} ms = {bound_ms / ms:.1%} of the "
-          "memory rate; two runs bit-equal")
+          f"memory rate; two runs bit-equal; without relight (no cluster) "
+          f"{norm_ms:.4f} ms")
     return {"max_abs_err": max(max_err, odd_err), "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms}
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "no_relight_ms": norm_ms}
 
 
 def phase_augment_variants(seed: int):
-    """The Triton kernel that the cluster kernel replaces, and the cluster
-    kernel at K = 4, 8 and 16 blocks per image, timed in turns at the four
-    augment modes."""
+    """The Triton kernel that the cluster kernel replaces and the cluster
+    kernel, timed in turns at the four augment modes."""
     from msml_torch.kernels import augment
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 9)
-    f32 = torch.rand((B, H, W, 3), generator=gen, device="cuda")
-    u8 = torch.randint(0, 256, (B_TRAIN, H, W, 3), generator=gen,
-                       device="cuda", dtype=torch.uint8)
+    f32 = [torch.rand((B, H, W, 3), generator=gen, device="cuda")
+           for _ in range(3)]
+    u8 = [torch.randint(0, 256, (B_TRAIN, H, W, 3), generator=gen,
+                        device="cuda", dtype=torch.uint8) for _ in range(12)]
     modes = {"main path": (f32, MAIN_PATH),
              "relight": (f32, dict(MAIN_PATH, relight=True)),
              "gauss": (f32, dict(MAIN_PATH, fill="gauss")),
              "uint8 stage": (u8, dict(lo=0, hi=1, fill="black",
                                       relight=True, use_norm=True))}
-    for name, (img, kw) in modes.items():
-        draws = torch.rand((img.shape[0], 6), generator=gen, device="cuda")
-        noise = torch.randn(img.shape, generator=gen, device="cuda")
-        bound = augment_bytes(img, draws, kw) / HBM_BYTES_PER_S * 1e3
+    for name, (imgs, kw) in modes.items():
+        draws = torch.rand((imgs[0].shape[0], 6), generator=gen,
+                           device="cuda")
+        noise = torch.randn(imgs[0].shape, generator=gen, device="cuda")
+        bound = augment_bytes(imgs[0], draws, kw) / HBM_BYTES_PER_S * 1e3
         row = []
-        for label in ("triton", 8, 4, 16, 8, "triton"):
-            if label == "triton":
-                fn = lambda: augment._augment_batch_triton(img, draws,
-                                                           noise, **kw)
-            else:
-                augment.CLUSTER = label
-                fn = lambda: augment.augment_batch(img, draws, noise, **kw)
-            row.append(f"{label if label == 'triton' else f'K={label}'} "
-                       f"{time_ms(fn):.4f}")
-        augment.CLUSTER = 8
+        for label in ("triton", "cuda", "cuda", "triton"):
+            fn = augment._augment_batch_triton if label == "triton" \
+                else augment.augment_batch
+            ms = time_graph_ms([lambda x=x: fn(x, draws, noise, **kw)
+                                for x in imgs])
+            row.append(f"{label} {ms:.4f}")
         print(f"[2 variants] {name} (bound {bound:.4f} ms): "
               + ", ".join(row) + " ms")
 

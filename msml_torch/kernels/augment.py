@@ -35,26 +35,34 @@ image is divided by its own maximum, so no output can be written before
 the whole image has been seen; a kernel with one block per image (the
 Triton kernel this replaces) walks its image in serial tiles and, with
 relight, reads it twice, with only B blocks in flight. Here K = 8 blocks
-(fewer for images under 8 rows) share each image. Block (b, k) owns a band
-of ceil(H / K) rows, one contiguous NHWC run: it copies the band into
-shared memory once (`cp.async`, 16 bytes a copy where the pointers and the
-band's offset allow it, else 8, 4, or one element), applies the fill and
-the light per pixel into a channel-major tile [C][rows * W] (the
-NHWC -> NCHW transpose, done once in shared memory), and, with relight,
-reduces the band's maximum and exchanges it with the other K - 1 blocks of
-its cluster through distributed shared memory (one cluster barrier, reads
-of the peers' slots, and a second barrier before exit so that no block
-leaves while a peer reads its slot). Then it scales, normalizes and writes
-the band's C runs of the NCHW output along W, 16 bytes a store where
-aligned. The image is read once and written once, with B * K blocks in
-flight. Without relight there is no exchange, and the launch has no
-cluster. In the tile, the 32 lanes of a warp write one channel of 32
-consecutive pixels (32 consecutive words) and read the staged pixels at a
-stride of C words, C odd, so neither side has a bank conflict and the
-planes need no padding beyond a multiple of 4 floats (16-byte reads). The
-f32 arithmetic follows the plain version's order operation by operation
-(IEEE `sqrtf` and division; no contraction into FMA where it decides a
-pixel of the square), so the square's edges match it to the pixel.
+of 128 threads (fewer blocks for images under 8 rows) share each image.
+Block (b, k) owns a band of ceil(H / K) rows, one contiguous NHWC run: it
+copies the band into shared memory once (`cp.async` in two groups, so that
+the first half is worked on while the second arrives; 16 bytes a copy
+where the pointers and the band's offset allow it, else 8, 4, or one
+element). A thread takes groups of 4 pixels: it reads their 4 C staged
+values (lanes 4 C elements apart: no bank conflict) and applies the fill
+and the light per pixel.
+  * Without relight (the sweep) it transposes NHWC -> NCHW in registers
+    and writes each channel's 4 pixels with one 16-byte store where
+    aligned (lanes on consecutive groups: 512 contiguous bytes a warp and
+    channel). No cluster, no barrier after the copy.
+  * With relight (the training stage) it writes the relit values into a
+    channel-major tile [C][rows * W] in shared memory (the transpose, done
+    once; one 16-byte store a channel and group, no bank conflict) and
+    keeps their maximum. The warps' maxima go to slots in shared memory;
+    after one cluster barrier every warp reads the K blocks' slots through
+    distributed shared memory, and the block divides, normalizes and
+    writes the tile along W, 16 bytes a store; a second barrier before
+    exit keeps every block alive while a peer may read its slots.
+The image is read from device memory once and written once, with B * K
+blocks in flight. The card holds at most 124 clusters of 8 at once (from
+`augment_occupancy`, PERF.md), so the training batch of 128 runs in one
+wave and a small second one. The f32 arithmetic follows the plain
+version's order operation by operation (IEEE `sqrtf`; no contraction
+into FMA; the divisions by 255 and by the maximum as a product with the
+rounded reciprocal and one FMA correction, which is IEEE division by
+Markstein's theorem), so the square's edges match it to the pixel.
 
 `augment_batch` launches the kernel for a CUDA tensor and runs the plain
 PyTorch version `augment_batch_reference` for a CPU tensor; a failure to
@@ -63,6 +71,7 @@ build or launch the kernel raises.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import os
 from typing import NamedTuple, Optional
@@ -73,7 +82,7 @@ from msml_torch.kernels import _nvcc
 
 FILLS = {"black": 0, "white": 1, "gauss": 2}
 CLUSTER = 8         # blocks per image: the portable maximum cluster size
-THREADS = 256       # a block's threads (csrc/augment.cu THREADS)
+THREADS = 128       # a block's threads (csrc/augment.cu THREADS)
 SCRATCH = 16        # floats of shared memory after the band (csrc SCRATCH)
 MAX_SMEM = 232448   # an H100 block's opt-in shared memory, bytes
 _TRITON_CACHE = os.path.join(os.path.dirname(os.path.dirname(
@@ -88,7 +97,6 @@ class AugmentGeometry(NamedTuple):
     rows: int       # image rows in a block's band, ceil(H / K)
     vec: int        # bytes per copy of the band into shared memory
     store_vec: int  # floats per store of the NCHW output
-    plane: int      # floats between the channel planes of the tile
     smem: int       # dynamic shared memory per block, bytes
     blocks: int     # B * K
 
@@ -98,14 +106,15 @@ def _round(v: int, m: int) -> int:
 
 
 def augment_geometry(b: int, h: int, w: int, c: int, dtype: torch.dtype,
-                     *tensors: torch.Tensor) -> AugmentGeometry:
+                     *tensors: torch.Tensor,
+                     relight: bool = False) -> AugmentGeometry:
     """The kernel's blocking for B images of (H, W, C) in `dtype` (float32
     or uint8): K = min(8, H) blocks per image, bands of ceil(H / K) rows;
     the widest copy (16, 8 or 4 bytes, else one element) that divides an
     image's bytes, a band's bytes and the address of each of `tensors`;
     the widest store (4, 2 or 1 floats) that divides H W and a band's
-    pixels; and the shared memory of a block: the tile (C planes), the
-    staged band and the scratch floats.
+    pixels; and the shared memory of a block: the staged band, with
+    `relight` the tile [C][rows * W rounded up to 4] f32, and the slots.
 
     Raises ValueError when a band does not fit in a block's shared memory.
     """
@@ -118,14 +127,14 @@ def augment_geometry(b: int, h: int, w: int, c: int, dtype: torch.dtype,
                and all(t.data_ptr() % v == 0 for t in tensors))
     store_vec = next(v for v in (4, 2, 1)
                      if h * w % v == 0 and rows * w % v == 0)
-    plane = _round(rows * w, 4)
-    smem = 4 * c * plane + _round(band, 16) + 4 * SCRATCH
+    tile = 4 * c * _round(rows * w, 4) if relight else 0
+    smem = _round(band, 16) + tile + 4 * SCRATCH
     if smem > MAX_SMEM:
         raise ValueError(
             f"augment_batch: a band of {rows} rows of ({w}, {c}) needs "
             f"{smem} bytes of shared memory per block, above the limit of "
             f"{MAX_SMEM} (H = {h} over K = {k} blocks per image)")
-    return AugmentGeometry(k, rows, vec, store_vec, plane, smem, b * k)
+    return AugmentGeometry(k, rows, vec, store_vec, smem, b * k)
 
 
 def _check_args(img: torch.Tensor, draws: torch.Tensor,
@@ -191,8 +200,24 @@ def augment_batch_reference(img: torch.Tensor, draws: torch.Tensor,
 
 def _lib():
     lib = _nvcc.load("augment")
-    _nvcc.signature(lib.augment_batch, pointers=4, ints=17)
+    _nvcc.signature(lib.augment_batch, pointers=4, ints=16)
+    lib.augment_occupancy.argtypes = [ctypes.c_int] * 3 + [
+        ctypes.POINTER(ctypes.c_int)] * 2
+    lib.augment_occupancy.restype = ctypes.c_int
     return lib
+
+
+def augment_occupancy(geo: AugmentGeometry, dtype: torch.dtype):
+    """(clusters of K relight blocks, blocks without a cluster per SM) that
+    the card holds at once for this geometry: the kernel runs in one wave
+    when B clusters (relight) or B K blocks fit."""
+    lib = _lib()
+    clusters, per_sm = ctypes.c_int(), ctypes.c_int()
+    err = lib.augment_occupancy(int(dtype == torch.uint8), geo.cluster,
+                                geo.smem, ctypes.byref(clusters),
+                                ctypes.byref(per_sm))
+    _nvcc.check(lib, err, "augment_occupancy")
+    return clusters.value, per_sm.value
 
 
 def augment_batch(img: torch.Tensor, draws: torch.Tensor,
@@ -216,7 +241,7 @@ def augment_batch(img: torch.Tensor, draws: torch.Tensor,
     out = torch.empty((b, c, h, w), dtype=torch.float32, device=img.device)
     if out.numel() == 0:
         return out
-    geo = augment_geometry(b, h, w, c, img.dtype, img)
+    geo = augment_geometry(b, h, w, c, img.dtype, img, relight=relight)
     gauss = fill == "gauss" and has_block
     lib = _lib()
     with torch.cuda.device(img.device):
@@ -224,7 +249,7 @@ def augment_batch(img: torch.Tensor, draws: torch.Tensor,
             img.data_ptr(), draws.data_ptr(),
             noise.data_ptr() if gauss else None, out.data_ptr(), b, h, w, c,
             int(img.dtype == torch.uint8), geo.cluster, geo.rows, geo.vec,
-            geo.store_vec, geo.plane, geo.smem, lo, hi, FILLS[fill],
+            geo.store_vec, geo.smem, lo, hi, FILLS[fill],
             int(has_block), int(relight), int(use_norm),
             torch.cuda.current_stream().cuda_stream)
     _nvcc.check(lib, err, "augment_batch")

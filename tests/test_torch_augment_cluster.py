@@ -3,19 +3,22 @@ on the CPU: `augment_geometry`, and a numpy replay of the kernel, step by
 step, against the plain version.
 
 The replay walks the blocks (b, k) of each image's cluster as the kernel
-does: the staging of the band in copies of the chosen width (every copy
-aligned, every byte copied once), the fill and the light per pixel by
-threads t, t + 256, ... into the channel-major tile, the band maxima in
-their slots and the cluster's exchange, and the NCHW stores of the chosen
-width. Shared memory and the output start as NaN, and every tile word and
-output element must be written exactly once. It then has to equal
-`augment_batch_reference` exactly in f32. The one libm call, exp, is
-torch's in both; the kernel's own `expf` on the card is held against the
-plain version by tests/test_torch_cuda.py and chip_smoke.py.
+does: the staging of the band in two copy groups of the chosen width
+(every copy aligned, every byte copied once); the groups of 4 pixels of
+each thread, stepping (x, y) as the kernel does; without relight the
+finished values straight to the output; with relight the relit values in
+the channel-major tile, each warp's maximum in its block's slots, the
+cluster's exchange, and the tile's stores of the chosen width. Shared
+memory and the output start as NaN, and every tile word and output element
+must be written exactly once. It then has to equal `augment_batch_reference`
+exactly in f32. The one libm call, exp, is torch's in both; the kernel's
+own `expf` on the card is held against the plain version by
+tests/test_torch_cuda.py and chip_smoke.py.
 """
 
 import itertools
 import os
+from fractions import Fraction
 
 import numpy as np
 import pytest
@@ -38,22 +41,22 @@ def _offset(t: torch.Tensor, offset: int) -> torch.Tensor:
 
 @pytest.mark.parametrize("b,h,w,c,dtype,want", [
     # 112^2 RGB f32 (the sweep) and uint8 (the training stage)
-    (512, 112, 112, 3, torch.float32, (8, 14, 16, 4, 1568, 37696, 4096)),
-    (128, 112, 112, 3, torch.uint8, (8, 14, 16, 4, 1568, 23584, 1024)),
+    (512, 112, 112, 3, torch.float32, (8, 14, 16, 4, 18880, 4096)),
+    (128, 112, 112, 3, torch.uint8, (8, 14, 16, 4, 4768, 1024)),
     # 128^2 gray (the JAX package's LightCNN input)
-    (4, 128, 128, 1, torch.float32, (8, 16, 16, 4, 2048, 16448, 32)),
+    (4, 128, 128, 1, torch.float32, (8, 16, 16, 4, 8256, 32)),
     # H < 8: one row a block, K = H; an odd H W: 4-byte copies, 1-float stores
-    (2, 5, 7, 3, torch.float32, (5, 1, 4, 1, 8, 256, 10)),
+    (2, 5, 7, 3, torch.float32, (5, 1, 4, 1, 160, 10)),
     # H not divisible by K: bands of 15, the last of 8
-    (2, 113, 112, 3, torch.float32, (8, 15, 16, 4, 1680, 40384, 16)),
-    (2, 113, 112, 3, torch.uint8, (8, 15, 16, 4, 1680, 25264, 16)),
+    (2, 113, 112, 3, torch.float32, (8, 15, 16, 4, 20224, 16)),
+    (2, 113, 112, 3, torch.uint8, (8, 15, 16, 4, 5104, 16)),
     # odd W: 8-byte copies of f32, byte copies of uint8, 2-float stores
-    (2, 16, 17, 3, torch.float32, (8, 2, 8, 2, 36, 912, 16)),
-    (2, 16, 17, 3, torch.uint8, (8, 2, 1, 2, 36, 608, 16)),
+    (2, 16, 17, 3, torch.float32, (8, 2, 8, 2, 480, 16)),
+    (2, 16, 17, 3, torch.uint8, (8, 2, 1, 2, 176, 16)),
     # H = 9 at K = 8: bands of 2, three blocks with no rows
-    (3, 9, 17, 1, torch.float32, (8, 2, 4, 1, 36, 352, 24)),
+    (3, 9, 17, 1, torch.float32, (8, 2, 4, 1, 208, 24)),
     # B = 1
-    (1, 112, 112, 3, torch.float32, (8, 14, 16, 4, 1568, 37696, 8)),
+    (1, 112, 112, 3, torch.float32, (8, 14, 16, 4, 18880, 8)),
 ])
 def test_geometry(b, h, w, c, dtype, want):
     img = torch.zeros((b, h, w, c), dtype=dtype)
@@ -62,10 +65,20 @@ def test_geometry(b, h, w, c, dtype, want):
     esize = 1 if dtype == torch.uint8 else 4
     assert geo.cluster == min(8, h) and geo.rows * geo.cluster >= h
     assert (geo.rows - 1) * geo.cluster < h
-    assert geo.plane % 4 == 0 and geo.plane >= geo.rows * w
-    assert geo.smem == (4 * c * geo.plane
-                        + -(-geo.rows * w * c * esize // 16) * 16
-                        + 4 * SCRATCH)
+    assert geo.smem == -(-geo.rows * w * c * esize // 16) * 16 + 4 * SCRATCH
+
+
+@pytest.mark.parametrize("dtype,tile", [(torch.float32, 18816),
+                                        (torch.uint8, 18816)])
+def test_geometry_relight_adds_the_tile(dtype, tile):
+    """With relight a block also holds its band's relit values, f32 in
+    [C][rows * W rounded up to 4]: 18,816 bytes at 112^2 RGB."""
+    plain = augment_geometry(128, 112, 112, 3, dtype)
+    relit = augment_geometry(128, 112, 112, 3, dtype, relight=True)
+    assert relit.smem - plain.smem == tile
+    assert relit._replace(smem=plain.smem) == plain
+    odd = augment_geometry(2, 9, 17, 1, dtype, relight=True)
+    assert odd.smem - augment_geometry(2, 9, 17, 1, dtype).smem == 4 * 36
 
 
 @pytest.mark.parametrize("dtype,vec", [(torch.float32, 4),
@@ -81,12 +94,12 @@ def test_geometry_one_element_off(dtype, vec):
 
 
 def test_geometry_raises_above_the_shared_memory_limit():
-    geo = augment_geometry(1, 256, 256, 3, torch.float32)
-    assert geo.smem <= MAX_SMEM  # 32 rows of 256 x 3 f32 still fit
+    geo = augment_geometry(1, 256, 512, 3, torch.float32)
+    assert geo.smem == 196672 <= MAX_SMEM  # 32 rows of 512 x 3 f32 fit
     with pytest.raises(ValueError, match=str(MAX_SMEM)):
         augment_geometry(1, 64, 4096, 3, torch.float32)
     with pytest.raises(ValueError, match="shared memory"):
-        augment_geometry(1, 1024, 1024, 3, torch.uint8)
+        augment_geometry(1, 2048, 2048, 3, torch.uint8)
 
 
 # ------------------------------------------------------------- the replay
@@ -106,13 +119,63 @@ def _exp(a):
     return torch.exp(torch.from_numpy(a)).numpy()
 
 
+def _walk(p0, p1, w, row0, visit):
+    """walk: thread t takes the groups of 4 pixels g = p0 / 4 + t,
+    + THREADS, ..., stepping (x, y) as the kernel does, then the last
+    (p1 - p0) mod 4 pixels one a thread; visit(on, lp, x, y) gets the
+    threads `on` and their pixels (arrays)."""
+    t = np.arange(THREADS)
+    g1 = p0 // 4 + (p1 - p0) // 4
+    g = p0 // 4 + t
+    x, y = 4 * g % w, row0 + 4 * g // w
+    while (g < g1).any():
+        on = g < g1
+        for j in range(4):
+            xj, yj = x[on] + j, y[on].copy()
+            while (xj >= w).any():  # a group that runs into the next row(s)
+                yj = np.where(xj >= w, yj + 1, yj)
+                xj = np.where(xj >= w, xj - w, xj)
+            visit(on, 4 * g[on] + j, xj, yj)
+        g = g + THREADS
+        x, y = x + 4 * THREADS % w, y + 4 * THREADS // w
+        y, x = np.where(x >= w, y + 1, y), np.where(x >= w, x - w, x)
+    lp = 4 * g1 + t
+    on = lp < p1
+    visit(on, lp[on], lp[on] % w, row0 + lp[on] // w)
+
+
+def _store_steps(npix, c, sv):
+    """(channel, first pixel) of each vector store of tile_store, thread
+    by thread, as it steps through the band's C runs laid end to end."""
+    for t in range(THREADS):
+        ch, i = 0, t * sv
+        while True:
+            while i >= npix and ch < c:
+                i -= npix
+                ch += 1
+            if ch == c:
+                break
+            yield ch, i
+            i += THREADS * sv
+
+
+def _finish(v, denom, use_norm):
+    if denom is not None:
+        v = v / denom
+    return (v - F32(0.5)) / F32(0.5) if use_norm else v
+
+
 def replay(img: torch.Tensor, draws, noise, *, lo, hi, fill, relight,
            use_norm) -> np.ndarray:
     b, h, w, c = img.shape
     u8 = img.dtype == torch.uint8
     esize = 1 if u8 else 4
-    geo = augment_geometry(b, h, w, c, img.dtype, img)
-    k_all, rows, vec, sv, plane = geo[:5]
+    geo = augment_geometry(b, h, w, c, img.dtype, img, relight=relight)
+    k_all, rows, vec, sv = geo[:4]
+    band_bytes = -(-rows * w * c * esize // 16) * 16
+    plane = -(-rows * w // 4) * 4
+    assert geo.smem == band_bytes + (4 * c * plane if relight else 0) \
+        + 4 * SCRATCH
     has_block = hi > 1 or lo > 0
     gauss = fill == "gauss" and has_block
     src = img.numpy().reshape(-1).view(np.uint8)  # the image bytes
@@ -121,77 +184,88 @@ def replay(img: torch.Tensor, draws, noise, *, lo, hi, fill, relight,
     out = np.full(b * c * h * w, np.nan, F32)
     written = np.zeros(out.shape, np.int64)
     t = np.arange(THREADS)
+
+    def write(dst, v):
+        assert np.isnan(out[dst]).all()
+        out[dst] = v
+        written[dst] += 1
+
     for bi in range(b):
         d = _draws(draws[bi].numpy(), h, w, lo, hi)
-        slots = np.full(k_all, np.nan, F32)
-        shared = {}
-        for k in range(k_all):  # up to the first cluster barrier
+        slots = np.full((k_all, THREADS // 32), np.nan, F32)
+        tiles = {}
+        for k in range(k_all):  # up to the cluster barrier
             smem = np.full(geo.smem, 0xFF, np.uint8)  # NaN in every word
-            tile = smem[:4 * c * plane].view(F32)
             row0 = min(h, k * rows)
             npix = (min(h, row0 + rows) - row0) * w
             first = ((bi * h + row0) * w * c) * esize  # the band's byte
-            band = smem[4 * c * plane:4 * c * plane + npix * c * esize]
+            band = smem[:npix * c * esize]
             seen = np.zeros(band.size, np.int64)
-            for i in range(0, band.size, THREADS * vec):  # stage<VEC>
-                for off in i + t * vec:
-                    if off < band.size:
-                        assert (base + first + off) % vec == 0
-                        band[off:off + vec] = src[first + off:
-                                                  first + off + vec]
-                        seen[off:off + vec] += 1
+            mid = npix // 2 // 16 * 16  # two copy groups: [0, mid), the rest
+            cuts = [(0, npix * c * esize)] if vec == 1 else [
+                (0, mid * c * esize), (mid * c * esize, npix * c * esize)]
+            for lo_b, hi_b in cuts:  # stage<VEC>
+                assert lo_b % vec == 0 and hi_b % vec == 0
+                for i in range(lo_b, hi_b, THREADS * vec):
+                    for off in i + t * vec:
+                        if off < hi_b:
+                            assert (base + first + off) % vec == 0
+                            band[off:off + vec] = src[first + off:
+                                                      first + off + vec]
+                            seen[off:off + vec] += 1
             assert (seen == 1).all()
-            vals = band.astype(F32) if u8 else band.view(F32)
+            vals = band.astype(F32) / F32(255.0) if u8 else band.view(F32)
+            tile = smem[band_bytes:band_bytes + 4 * c * plane].view(F32)
             m = np.full(THREADS, -np.inf, F32)
-            x, y = t % w, row0 + t // w
-            wrote = np.zeros(c * plane, np.int64)
-            for lp0 in range(0, npix, THREADS):  # make_tile
-                on = lp0 + t < npix
-                lp, xf, yf = lp0 + t[on], x[on].astype(F32), y[on].astype(F32)
+            out0 = ((bi * c) * h + row0) * w  # channel 0 of the band
+
+            def visit(on, lp, x, y, row0=row0, vals=vals, first=first,
+                      tile=tile, m=m, out0=out0):
+                """pixel, element, then the tile and m (relight) or the
+                finished values straight to the output (direct)."""
+                xf, yf = x.astype(F32), y.astype(F32)
                 inside = has_block & (xf >= d["x0"]) & (xf < d["x1"]) \
                     & (yf >= d["y0"]) & (yf < d["y1"])
                 if relight:
                     dx, dy = xf - d["cx"], yf - d["cy"]
-                    d2 = dx * dx + dy * dy
-                    light = _exp(F32(-0.5) * d2 / F32(16384.0)) * d["scale"]
+                    light = _exp(F32(-0.5) * (dx * dx + dy * dy)
+                                 / F32(16384.0)) * d["scale"]
                 for ch in range(c):
-                    v = vals[lp * c + ch]
-                    if u8:
-                        v = v / F32(255.0)
+                    e = lp * c + ch
+                    v = vals[e]
                     if gauss:
-                        v = np.where(inside, nz[first // esize + lp * c + ch],
-                                     v)
+                        v = np.where(inside, nz[first // esize + e], v)
                     elif has_block:
                         v = np.where(inside, F32(FILLS[fill]), v)
                     if relight:
                         v = v * light
                         m[on] = np.maximum(m[on], v)
-                    assert np.isnan(tile[ch * plane + lp]).all()
-                    tile[ch * plane + lp] = v
-                    wrote[ch * plane + lp] += 1
-                x, y = x + THREADS % w, y + THREADS // w
-                y, x = np.where(x >= w, y + 1, y), np.where(x >= w, x - w, x)
-            assert (wrote[:c * plane].reshape(c, plane)[:, :npix] == 1).all()
-            if relight:  # warp shuffles, then the block's 8 warp maxima
-                slots[k] = m.reshape(-1, 32).max(1).max()
-            shared[k] = (tile, row0, npix)
-        assert not np.isnan(slots).any() or not relight
-        denom = max(slots.max(), F32(1e-6)) if relight else None
-        for k in range(k_all):  # after the barrier: store_band<SV>
-            tile, row0, npix = shared[k]
-            nv = npix // sv
-            for j in range(c * nv):
-                ch, i = j // nv, (j - j // nv * nv) * sv
+                        assert np.isnan(tile[ch * plane + lp]).all()
+                        tile[ch * plane + lp] = v
+                    else:
+                        write(out0 + ch * h * w + lp,
+                              _finish(v, None, use_norm))
+
+            for p0, p1 in ((0, mid), (mid, npix)):
+                _walk(p0, p1, w, row0, visit)
+            if not relight:
+                for ch, g0 in itertools.product(range(c),
+                                                range(0, npix - 3, 4)):
+                    assert (out0 + ch * h * w + g0) % sv == 0  # store4<SV>
+                continue
+            tiles[k] = (tile, row0, npix)
+            slots[k] = m.reshape(-1, 32).max(1)  # each warp's maximum
+        if not relight:
+            continue
+        assert not np.isnan(slots).any()
+        denom = max(slots.max(), F32(1e-6))  # every warp reads every slot
+        for k, (tile, row0, npix) in tiles.items():  # tile_store<SV>
+            for ch, i in _store_steps(npix, c, sv):
                 dst = ((bi * c + ch) * h + row0) * w + i
-                assert dst * 4 % (4 * sv) == 0
-                v = tile[ch * plane + i:ch * plane + i + sv]
-                if relight:
-                    v = v / denom
-                if use_norm:
-                    v = (v - F32(0.5)) / F32(0.5)
-                assert np.isnan(out[dst:dst + sv]).all()
-                out[dst:dst + sv] = v
-                written[dst:dst + sv] += 1
+                assert dst % sv == 0 and (ch * plane + i) % sv == 0
+                write(np.arange(dst, dst + sv),
+                      _finish(tile[ch * plane + i:ch * plane + i + sv],
+                              denom, use_norm))
     assert (written == 1).all()
     return out.reshape(b, c, h, w)
 
@@ -232,6 +306,41 @@ def test_replay_sees_the_cluster_exchange():
     np.testing.assert_array_equal(
         got, augment_batch_reference(img, draws, **kw).numpy())
     assert got.max() == 1.0 and got[0, 0, 8:].max() < 0.25
+
+
+def _rn(x: Fraction) -> np.float32:
+    """x rounded to the nearest float32, ties to even."""
+    f = np.float32(float(x))
+    cands = (np.nextafter(f, F32(-np.inf)), f, np.nextafter(f, F32(np.inf)))
+    return min(cands, key=lambda v: (abs(Fraction(float(v)) - x),
+                                     int(np.array(v).view(np.uint32)) & 1))
+
+
+def _div_rn(a, b, y):
+    """div_rn of csrc/augment.cu with exact FMAs: q = RN(a y), then
+    RN(q + RN(a - b q) y)."""
+    fa, fb, fy = (Fraction(float(v)) for v in (a, b, y))
+    q = _rn(fa * fy)
+    e = _rn(fa - fb * Fraction(float(q)))
+    return _rn(Fraction(float(q)) + Fraction(float(e)) * fy)
+
+
+def test_division_by_reciprocal_and_one_fma_is_ieee_division():
+    """The kernel divides by 255 and by the image's maximum as a product
+    with the rounded reciprocal and one FMA correction; that is IEEE
+    division, which the plain version does: for all 256 uint8 values, and
+    for relit values over maxima from the 1e-6 floor to 3."""
+    inv255 = _rn(Fraction(1, 255))
+    assert inv255 == F32(float.fromhex("0x1.010102p-8"))
+    for x in range(256):
+        assert _div_rn(F32(x), F32(255), inv255) == F32(x) / F32(255)
+    rng = np.random.RandomState(0)
+    for a, b in zip(np.concatenate([rng.uniform(0, 1.4, 300),
+                                    rng.standard_normal(300) * 2]),
+                    np.concatenate([rng.uniform(1e-6, 1e-3, 300),
+                                    rng.uniform(0.05, 3.0, 300)])):
+        a, b = F32(a), F32(b)
+        assert _div_rn(a, b, _rn(1 / Fraction(float(b)))) == a / b
 
 
 def test_build_compiles_the_augment_source(monkeypatch, tmp_path):
