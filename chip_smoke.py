@@ -428,7 +428,8 @@ def phase_kernel_uint8(seed: int) -> dict:
 
 def phase_augment_variants(seed: int):
     """The Triton kernel that the cluster kernel replaces and the cluster
-    kernel, timed in turns at the four augment modes."""
+    kernel (K = 7), timed in turns at the four augment modes; then the
+    cluster kernel at K = 6 and 8 blocks per image."""
     from msml_torch.kernels import augment
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 9)
@@ -447,12 +448,17 @@ def phase_augment_variants(seed: int):
         noise = torch.randn(imgs[0].shape, generator=gen, device="cuda")
         bound = augment_bytes(imgs[0], draws, kw) / HBM_BYTES_PER_S * 1e3
         row = []
-        for label in ("triton", "cuda", "cuda", "triton"):
-            fn = augment._augment_batch_triton if label == "triton" \
-                else augment.augment_batch
+        for label in ("triton", 7, 7, "triton", 6, 8, 7):
+            if label == "triton":
+                fn = augment._augment_batch_triton
+            else:
+                augment.CLUSTER = label
+                fn = augment.augment_batch
             ms = time_graph_ms([lambda x=x: fn(x, draws, noise, **kw)
                                 for x in imgs])
-            row.append(f"{label} {ms:.4f}")
+            row.append(f"{label if label == 'triton' else f'K={label}'} "
+                       f"{ms:.4f}")
+        augment.CLUSTER = 7
         print(f"[2 variants] {name} (bound {bound:.4f} ms): "
               + ", ".join(row) + " ms")
 

@@ -20,6 +20,10 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int THREADS = 128;      // 4 warps a block
+constexpr int MIN_BLOCKS = 8;     // blocks of a uint8 relight launch that
+                                  // fit an SM's shared memory: registers
+                                  // must not hold it to fewer
+constexpr int PARTS = 2;          // copy groups a band is staged in
 constexpr int SCRATCH = 16;       // floats after the band: the warps'
                                   // maxima (slots), read by the cluster
 constexpr int MAX_SMEM = 232448;  // an H100 block's opt-in shared memory
@@ -55,10 +59,14 @@ __device__ __forceinline__ void stage(unsigned char* dst,
   }
 }
 
-// Wait until at most N of the thread's copy groups are still in flight.
-template <int N>
-__device__ __forceinline__ void wait_staged() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+// Wait until at most n (< PARTS) of the thread's copy groups are still in
+// flight; VEC == 1 copies have no groups and return at once.
+__device__ __forceinline__ void wait_staged(int n) {
+  static_assert(PARTS == 2, "one wait_group per part");
+  if (n == 0)
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  else
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
 // a / b rounded to nearest, as IEEE division gives it, from y = RN(1 / b):
@@ -120,9 +128,9 @@ __device__ __forceinline__ void pixel(float xf, float yf, const Draws& d,
   if constexpr (RELIGHT) {
     const float dx = __fsub_rn(xf, d.cx), dy = __fsub_rn(yf, d.cy);
     const float d2 = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
-    // / 16384 as * 2^-14: the same real number, so the same rounding
-    light = __fmul_rn(expf(__fmul_rn(__fmul_rn(-0.5f, d2), 0x1p-14f)),
-                      d.scale);
+    // -0.5 d2 / 16384 as d2 * -2^-15: both steps scale by powers of two,
+    // so one product rounds the same real number the same way
+    light = __fmul_rn(expf(__fmul_rn(d2, -0x1p-15f)), d.scale);
   }
 }
 
@@ -379,7 +387,7 @@ __device__ __forceinline__ void tile_store(const float* tile, float* out,
 // maximum with the K - 1 other blocks of its cluster through distributed
 // shared memory, then divides, normalizes and writes the tile.
 template <bool U8, bool RELIGHT>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 augment_cluster(const unsigned char* __restrict__ img,
                 const float* __restrict__ draws,
                 const float* __restrict__ noise, float* __restrict__ out,
@@ -396,19 +404,22 @@ augment_cluster(const unsigned char* __restrict__ img,
 
   const size_t first = ((size_t)b * h + row0) * w * c;  // the band's element
   const unsigned char* src = img + first * ESIZE;
-  // two copy groups: the first half of the band is worked on while the
-  // second is in flight; a half of a multiple of 16 pixels keeps both
-  // whole copies and whole groups of 4 pixels
-  const int mid = npix / 2 / 16 * 16;
-  const int mid_bytes = mid * c * ESIZE, bytes = npix * c * ESIZE;
-  switch (vec) {
-    case 16: stage<16>(band, src, 0, mid_bytes);
-             stage<16>(band, src, mid_bytes, bytes); break;
-    case 8: stage<8>(band, src, 0, mid_bytes);
-            stage<8>(band, src, mid_bytes, bytes); break;
-    case 4: stage<4>(band, src, 0, mid_bytes);
-            stage<4>(band, src, mid_bytes, bytes); break;
-    default: stage<1>(band, src, 0, bytes); break;
+  // PARTS copy groups: each part of the band is worked on while the later
+  // ones are in flight; parts of a multiple of 16 pixels keep whole copies
+  // and whole groups of 4 pixels
+  int cut[PARTS + 1];
+#pragma unroll
+  for (int i = 0; i <= PARTS; ++i) cut[i] = npix * i / PARTS / 16 * 16;
+  cut[PARTS] = npix;
+#pragma unroll
+  for (int i = 0; i < PARTS; ++i) {
+    const int from = cut[i] * c * ESIZE, to = cut[i + 1] * c * ESIZE;
+    switch (vec) {
+      case 16: stage<16>(band, src, from, to); break;
+      case 8: stage<8>(band, src, from, to); break;
+      case 4: stage<4>(band, src, from, to); break;
+      default: stage<1>(band, src, from, to); break;
+    }
   }
   const Draws d = image_draws(draws + (size_t)b * 6, h, w, lo, hi);
   const float* noise_band = fill == 2 && has_block ? noise + first : nullptr;
@@ -416,35 +427,29 @@ augment_cluster(const unsigned char* __restrict__ img,
   const int hw = h * w;
 
   if constexpr (!RELIGHT) {
-    wait_staged<1>();
-    __syncthreads();
-    direct_pass<U8>(c, store_vec, band, noise_band, out_band, hw, 0, mid, w,
-                    row0, d, has_block, fill, use_norm);
-    wait_staged<0>();
-    __syncthreads();
-    direct_pass<U8>(c, store_vec, band, noise_band, out_band, hw, mid, npix,
-                    w, row0, d, has_block, fill, use_norm);
+#pragma unroll
+    for (int i = 0; i < PARTS; ++i) {
+      wait_staged(PARTS - 1 - i);
+      __syncthreads();
+      direct_pass<U8>(c, store_vec, band, noise_band, out_band, hw, cut[i],
+                      cut[i + 1], w, row0, d, has_block, fill, use_norm);
+    }
   } else {
     float* tile =
         reinterpret_cast<float*>(band + round16(rows * w * c * ESIZE));
     const int plane = (rows * w + 3) / 4 * 4;
     float m = -INFINITY;
-    wait_staged<1>();
-    __syncthreads();
-    if (c == 3)
-      make_tile<U8, 3>(band, noise_band, tile, plane, 0, mid, w, row0, d,
-                       has_block, fill, m);
-    else
-      make_tile<U8, 1>(band, noise_band, tile, plane, 0, mid, w, row0, d,
-                       has_block, fill, m);
-    wait_staged<0>();
-    __syncthreads();
-    if (c == 3)
-      make_tile<U8, 3>(band, noise_band, tile, plane, mid, npix, w, row0, d,
-                       has_block, fill, m);
-    else
-      make_tile<U8, 1>(band, noise_band, tile, plane, mid, npix, w, row0, d,
-                       has_block, fill, m);
+#pragma unroll
+    for (int i = 0; i < PARTS; ++i) {
+      wait_staged(PARTS - 1 - i);
+      __syncthreads();
+      if (c == 3)
+        make_tile<U8, 3>(band, noise_band, tile, plane, cut[i], cut[i + 1],
+                         w, row0, d, has_block, fill, m);
+      else
+        make_tile<U8, 1>(band, noise_band, tile, plane, cut[i], cut[i + 1],
+                         w, row0, d, has_block, fill, m);
+    }
     // each warp's maximum into this block's slots [THREADS / 32]; after the
     // cluster barrier every warp reads the K blocks' slots itself
     constexpr int WARPS = THREADS / 32;

@@ -34,12 +34,12 @@ Design: one thread-block cluster per image (`augment_geometry`). The relit
 image is divided by its own maximum, so no output can be written before
 the whole image has been seen; a kernel with one block per image (the
 Triton kernel this replaces) walks its image in serial tiles and, with
-relight, reads it twice, with only B blocks in flight. Here K = 8 blocks
-of 128 threads (fewer blocks for images under 8 rows) share each image.
+relight, reads it twice, with only B blocks in flight. Here K = 7 blocks
+of 128 threads (fewer blocks for images under 7 rows) share each image.
 Block (b, k) owns a band of ceil(H / K) rows, one contiguous NHWC run: it
-copies the band into shared memory once (`cp.async` in two groups, so that
-the first half is worked on while the second arrives; 16 bytes a copy
-where the pointers and the band's offset allow it, else 8, 4, or one
+copies the band into shared memory once (`cp.async` in PARTS = 2 groups,
+so that the first half is worked on while the second arrives; 16 bytes a
+copy where the pointers and the band's offset allow it, else 8, 4, or one
 element). A thread takes groups of 4 pixels: it reads their 4 C staged
 values (lanes 4 C elements apart: no bank conflict) and applies the fill
 and the light per pixel.
@@ -56,13 +56,17 @@ and the light per pixel.
     writes the tile along W, 16 bytes a store; a second barrier before
     exit keeps every block alive while a peer may read its slots.
 The image is read from device memory once and written once, with B * K
-blocks in flight. The card holds at most 124 clusters of 8 at once (from
-`augment_occupancy`, PERF.md), so the training batch of 128 runs in one
-wave and a small second one. The f32 arithmetic follows the plain
-version's order operation by operation (IEEE `sqrtf`; no contraction
-into FMA; the divisions by 255 and by the maximum as a product with the
-rounded reciprocal and one FMA correction, which is IEEE division by
-Markstein's theorem), so the square's edges match it to the pixel.
+blocks in flight. Why 7: the relight's stores wait for the whole cluster,
+so a batch that does not fit on the card at once pays for a second wave.
+An H100 holds 124 clusters of 8 blocks at once but 139 of 7
+(`augment_occupancy`), so the training batch of 128 fits in one wave at
+K = 7 and not at 8; the 7 bands of 16 rows also divide 112 (PERF.md,
+PR 8, has the times at K = 6, 7 and 8). The f32 arithmetic follows the
+plain version's order operation by operation (IEEE `sqrtf`; no
+contraction into FMA; the divisions by 255 and by the maximum as a
+product with the rounded reciprocal and one FMA correction, which is IEEE
+division by Markstein's theorem), so the square's edges match it to the
+pixel.
 
 `augment_batch` launches the kernel for a CUDA tensor and runs the plain
 PyTorch version `augment_batch_reference` for a CPU tensor; a failure to
@@ -81,8 +85,9 @@ import torch
 from msml_torch.kernels import _nvcc
 
 FILLS = {"black": 0, "white": 1, "gauss": 2}
-CLUSTER = 8         # blocks per image: the portable maximum cluster size
+CLUSTER = 7         # blocks per image (see the design note)
 THREADS = 128       # a block's threads (csrc/augment.cu THREADS)
+PARTS = 2           # copy groups a band is staged in (csrc PARTS)
 SCRATCH = 16        # floats of shared memory after the band (csrc SCRATCH)
 MAX_SMEM = 232448   # an H100 block's opt-in shared memory, bytes
 _TRITON_CACHE = os.path.join(os.path.dirname(os.path.dirname(
@@ -109,7 +114,7 @@ def augment_geometry(b: int, h: int, w: int, c: int, dtype: torch.dtype,
                      *tensors: torch.Tensor,
                      relight: bool = False) -> AugmentGeometry:
     """The kernel's blocking for B images of (H, W, C) in `dtype` (float32
-    or uint8): K = min(8, H) blocks per image, bands of ceil(H / K) rows;
+    or uint8): K = min(7, H) blocks per image, bands of ceil(H / K) rows;
     the widest copy (16, 8 or 4 bytes, else one element) that divides an
     image's bytes, a band's bytes and the address of each of `tensors`;
     the widest store (4, 2 or 1 floats) that divides H W and a band's

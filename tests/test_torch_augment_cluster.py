@@ -3,7 +3,7 @@ on the CPU: `augment_geometry`, and a numpy replay of the kernel, step by
 step, against the plain version.
 
 The replay walks the blocks (b, k) of each image's cluster as the kernel
-does: the staging of the band in two copy groups of the chosen width
+does: the staging of the band in PARTS copy groups of the chosen width
 (every copy aligned, every byte copied once); the groups of 4 pixels of
 each thread, stepping (x, y) as the kernel does; without relight the
 finished values straight to the output; with relight the relit values in
@@ -25,7 +25,8 @@ import pytest
 import torch
 
 from msml_torch.kernels import _nvcc
-from msml_torch.kernels.augment import (FILLS, MAX_SMEM, SCRATCH, THREADS,
+from msml_torch.kernels.augment import (FILLS, MAX_SMEM, PARTS, SCRATCH,
+                                        THREADS,
                                         augment_batch_reference,
                                         augment_geometry)
 
@@ -40,39 +41,40 @@ def _offset(t: torch.Tensor, offset: int) -> torch.Tensor:
 
 
 @pytest.mark.parametrize("b,h,w,c,dtype,want", [
-    # 112^2 RGB f32 (the sweep) and uint8 (the training stage)
-    (512, 112, 112, 3, torch.float32, (8, 14, 16, 4, 18880, 4096)),
-    (128, 112, 112, 3, torch.uint8, (8, 14, 16, 4, 4768, 1024)),
-    # 128^2 gray (the JAX package's LightCNN input)
-    (4, 128, 128, 1, torch.float32, (8, 16, 16, 4, 8256, 32)),
-    # H < 8: one row a block, K = H; an odd H W: 4-byte copies, 1-float stores
+    # 112^2 RGB f32 (the sweep) and uint8 (the training stage): 7 bands of 16
+    (512, 112, 112, 3, torch.float32, (7, 16, 16, 4, 21568, 3584)),
+    (128, 112, 112, 3, torch.uint8, (7, 16, 16, 4, 5440, 896)),
+    # 128^2 gray (the JAX package's LightCNN input): bands of 19, the last 14
+    (4, 128, 128, 1, torch.float32, (7, 19, 16, 4, 9792, 28)),
+    # H < 7: one row a block, K = H; an odd H W: 4-byte copies, 1-float stores
     (2, 5, 7, 3, torch.float32, (5, 1, 4, 1, 160, 10)),
-    # H not divisible by K: bands of 15, the last of 8
-    (2, 113, 112, 3, torch.float32, (8, 15, 16, 4, 20224, 16)),
-    (2, 113, 112, 3, torch.uint8, (8, 15, 16, 4, 5104, 16)),
-    # odd W: 8-byte copies of f32, byte copies of uint8, 2-float stores
-    (2, 16, 17, 3, torch.float32, (8, 2, 8, 2, 480, 16)),
-    (2, 16, 17, 3, torch.uint8, (8, 2, 1, 2, 176, 16)),
-    # H = 9 at K = 8: bands of 2, three blocks with no rows
-    (3, 9, 17, 1, torch.float32, (8, 2, 4, 1, 208, 24)),
+    # H not divisible by K: bands of 17, the last of 11
+    (2, 113, 112, 3, torch.float32, (7, 17, 16, 4, 22912, 14)),
+    (2, 113, 112, 3, torch.uint8, (7, 17, 16, 4, 5776, 14)),
+    # odd W and odd band pixels: 4-byte copies of f32, byte copies of uint8,
+    # 1-float stores
+    (2, 16, 17, 3, torch.float32, (7, 3, 4, 1, 688, 14)),
+    (2, 16, 17, 3, torch.uint8, (7, 3, 1, 1, 224, 14)),
+    # H = 9 at K = 7: bands of 2, two blocks with no rows
+    (3, 9, 17, 1, torch.float32, (7, 2, 4, 1, 208, 21)),
     # B = 1
-    (1, 112, 112, 3, torch.float32, (8, 14, 16, 4, 18880, 8)),
+    (1, 112, 112, 3, torch.float32, (7, 16, 16, 4, 21568, 7)),
 ])
 def test_geometry(b, h, w, c, dtype, want):
     img = torch.zeros((b, h, w, c), dtype=dtype)
     geo = augment_geometry(b, h, w, c, dtype, img)
     assert tuple(geo) == want
     esize = 1 if dtype == torch.uint8 else 4
-    assert geo.cluster == min(8, h) and geo.rows * geo.cluster >= h
+    assert geo.cluster == min(7, h) and geo.rows * geo.cluster >= h
     assert (geo.rows - 1) * geo.cluster < h
     assert geo.smem == -(-geo.rows * w * c * esize // 16) * 16 + 4 * SCRATCH
 
 
-@pytest.mark.parametrize("dtype,tile", [(torch.float32, 18816),
-                                        (torch.uint8, 18816)])
+@pytest.mark.parametrize("dtype,tile", [(torch.float32, 21504),
+                                        (torch.uint8, 21504)])
 def test_geometry_relight_adds_the_tile(dtype, tile):
     """With relight a block also holds its band's relit values, f32 in
-    [C][rows * W rounded up to 4]: 18,816 bytes at 112^2 RGB."""
+    [C][rows * W rounded up to 4]: 21,504 bytes at 112^2 RGB."""
     plain = augment_geometry(128, 112, 112, 3, dtype)
     relit = augment_geometry(128, 112, 112, 3, dtype, relight=True)
     assert relit.smem - plain.smem == tile
@@ -94,7 +96,7 @@ def test_geometry_one_element_off(dtype, vec):
 
 
 def test_geometry_raises_above_the_shared_memory_limit():
-    geo = augment_geometry(1, 256, 512, 3, torch.float32)
+    geo = augment_geometry(1, 224, 512, 3, torch.float32)
     assert geo.smem == 196672 <= MAX_SMEM  # 32 rows of 512 x 3 f32 fit
     with pytest.raises(ValueError, match=str(MAX_SMEM)):
         augment_geometry(1, 64, 4096, 3, torch.float32)
@@ -201,9 +203,10 @@ def replay(img: torch.Tensor, draws, noise, *, lo, hi, fill, relight,
             first = ((bi * h + row0) * w * c) * esize  # the band's byte
             band = smem[:npix * c * esize]
             seen = np.zeros(band.size, np.int64)
-            mid = npix // 2 // 16 * 16  # two copy groups: [0, mid), the rest
-            cuts = [(0, npix * c * esize)] if vec == 1 else [
-                (0, mid * c * esize), (mid * c * esize, npix * c * esize)]
+            cut = [npix * i // PARTS // 16 * 16 for i in range(PARTS)]
+            cut.append(npix)  # PARTS copy groups of multiples of 16 pixels
+            cuts = [(cut[i] * c * esize, cut[i + 1] * c * esize)
+                    for i in range(PARTS)]
             for lo_b, hi_b in cuts:  # stage<VEC>
                 assert lo_b % vec == 0 and hi_b % vec == 0
                 for i in range(lo_b, hi_b, THREADS * vec):
@@ -228,8 +231,8 @@ def replay(img: torch.Tensor, draws, noise, *, lo, hi, fill, relight,
                     & (yf >= d["y0"]) & (yf < d["y1"])
                 if relight:
                     dx, dy = xf - d["cx"], yf - d["cy"]
-                    light = _exp(F32(-0.5) * (dx * dx + dy * dy)
-                                 / F32(16384.0)) * d["scale"]
+                    light = _exp((dx * dx + dy * dy) * F32(-2.0 ** -15)) \
+                        * d["scale"]
                 for ch in range(c):
                     e = lp * c + ch
                     v = vals[e]
@@ -246,8 +249,8 @@ def replay(img: torch.Tensor, draws, noise, *, lo, hi, fill, relight,
                         write(out0 + ch * h * w + lp,
                               _finish(v, None, use_norm))
 
-            for p0, p1 in ((0, mid), (mid, npix)):
-                _walk(p0, p1, w, row0, visit)
+            for i in range(PARTS):
+                _walk(cut[i], cut[i + 1], w, row0, visit)
             if not relight:
                 for ch, g0 in itertools.product(range(c),
                                                 range(0, npix - 3, 4)):
