@@ -224,16 +224,17 @@ def phase_build():
                                       "augment_cluster")) and re.search(
                         r"[1-9]\d* bytes spill", line):
                     spills.append(kernel)
-    geo = {k: augment.augment_geometry(b, H, W, 3, dt, relight=True)
-           for k, b, dt in (("f32 B=512", B, torch.float32),
-                            ("uint8 B=128", B_TRAIN, torch.uint8))}
-    print("[1 build]   augment_cluster<U8, RELIGHT>: " + "; ".join(
-        f"{k} {g.smem} B of dynamic shared memory a block, {g.blocks} "
-        f"blocks of {augment.THREADS} threads, clusters of {g.cluster}; "
-        "resident at once: {} clusters (relight), {} blocks a SM "
-        "(no relight)".format(*augment.augment_occupancy(
-            g, torch.uint8 if "uint8" in k else torch.float32))
-        for k, g in geo.items()))
+    for name, b, dtype in (("f32 B=512", B, torch.float32),
+                           ("uint8 B=128", B_TRAIN, torch.uint8)):
+        plain = augment.augment_geometry(b, H, W, 3, dtype)
+        relit = augment.augment_geometry(b, H, W, 3, dtype, relight=True)
+        clusters = augment.augment_occupancy(relit, dtype)[0]
+        per_sm = augment.augment_occupancy(plain, dtype)[1]
+        print(f"[1 build]   augment_cluster {name}: {plain.blocks} blocks "
+              f"of {augment.THREADS} threads, {plain.smem} B of shared "
+              f"memory a block ({per_sm} blocks a SM at once), with relight "
+              f"{relit.smem} B in clusters of {relit.cluster} ({clusters} "
+              "clusters at once)")
     if spills:
         fail(f"{sorted(set(spills))} spill registers")
 
@@ -279,7 +280,7 @@ def augment_bytes(img, draws, kw) -> int:
     """Bytes `augment_batch` must move: the image read once, the f32 NCHW
     output written once, the draws, and, for the gauss fill, the noise
     inside each image's square (the only noise it reads)."""
-    b, h, w, c = img.shape
+    _, h, w, c = img.shape
     moved = img.numel() * (img.element_size() + 4) + draws.numel() * 4
     if kw["fill"] == "gauss" and (kw["hi"] > 1 or kw["lo"] > 0):
         r0 = draws[:, 0].double().cpu()
@@ -424,43 +425,6 @@ def phase_kernel_uint8(seed: int) -> dict:
     return {"max_abs_err": max(max_err, odd_err), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "no_relight_ms": norm_ms}
-
-
-def phase_augment_variants(seed: int):
-    """The Triton kernel that the cluster kernel replaces and the cluster
-    kernel (K = 7), timed in turns at the four augment modes; then the
-    cluster kernel at K = 6 and 8 blocks per image."""
-    from msml_torch.kernels import augment
-
-    gen = torch.Generator(device="cuda").manual_seed(seed + 9)
-    f32 = [torch.rand((B, H, W, 3), generator=gen, device="cuda")
-           for _ in range(3)]
-    u8 = [torch.randint(0, 256, (B_TRAIN, H, W, 3), generator=gen,
-                        device="cuda", dtype=torch.uint8) for _ in range(12)]
-    modes = {"main path": (f32, MAIN_PATH),
-             "relight": (f32, dict(MAIN_PATH, relight=True)),
-             "gauss": (f32, dict(MAIN_PATH, fill="gauss")),
-             "uint8 stage": (u8, dict(lo=0, hi=1, fill="black",
-                                      relight=True, use_norm=True))}
-    for name, (imgs, kw) in modes.items():
-        draws = torch.rand((imgs[0].shape[0], 6), generator=gen,
-                           device="cuda")
-        noise = torch.randn(imgs[0].shape, generator=gen, device="cuda")
-        bound = augment_bytes(imgs[0], draws, kw) / HBM_BYTES_PER_S * 1e3
-        row = []
-        for label in ("triton", 7, 7, "triton", 6, 8, 7):
-            if label == "triton":
-                fn = augment._augment_batch_triton
-            else:
-                augment.CLUSTER = label
-                fn = augment.augment_batch
-            ms = time_graph_ms([lambda x=x: fn(x, draws, noise, **kw)
-                                for x in imgs])
-            row.append(f"{label if label == 'triton' else f'K={label}'} "
-                       f"{ms:.4f}")
-        augment.CLUSTER = 7
-        print(f"[2 variants] {name} (bound {bound:.4f} ms): "
-              + ", ".join(row) + " ms")
 
 
 def prelu_sites(seed: int):
@@ -1126,7 +1090,6 @@ def main(argv=None):
     phase_build()
     augment_entry = phase_kernel(args.seed)
     uint8 = phase_kernel_uint8(args.seed)
-    phase_augment_variants(args.seed)
     prelu_entries = phase_kernel_prelu(args.seed)
     conv_entries = phase_kernel_conv(args.seed)
     model, eval_img_s = phase_model(args.seed)

@@ -77,7 +77,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import os
 from typing import NamedTuple, Optional
 
 import torch
@@ -90,11 +89,6 @@ THREADS = 128       # a block's threads (csrc/augment.cu THREADS)
 PARTS = 2           # copy groups a band is staged in (csrc PARTS)
 SCRATCH = 16        # floats of shared memory after the band (csrc SCRATCH)
 MAX_SMEM = 232448   # an H100 block's opt-in shared memory, bytes
-_TRITON_CACHE = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "_build", "triton")
-_TILE = 4096  # elements per tile (padded): 8 rows of 128 x 4 for RGB
-
-tl = None  # triton.language, bound by _kernel() at the first launch
 
 
 class AugmentGeometry(NamedTuple):
@@ -203,6 +197,7 @@ def augment_batch_reference(img: torch.Tensor, draws: torch.Tensor,
     return out.permute(0, 3, 1, 2).contiguous()
 
 
+@functools.lru_cache(maxsize=None)
 def _lib():
     lib = _nvcc.load("augment")
     _nvcc.signature(lib.augment_batch, pointers=4, ints=16)
@@ -262,29 +257,6 @@ def augment_batch(img: torch.Tensor, draws: torch.Tensor,
     return out
 
 
-def _augment_batch_triton(img: torch.Tensor, draws: torch.Tensor,
-                          noise: Optional[torch.Tensor] = None, *,
-                          lo: int = 0, hi: int = 1, fill: str = "black",
-                          relight: bool = False,
-                          use_norm: bool = True) -> torch.Tensor:
-    """The Triton kernel that the CUDA kernel replaces (one program per
-    image), kept to be timed beside it; counts no launch."""
-    has_block = _check_args(img, draws, noise, lo, hi, fill)
-    b, h, w, c = img.shape
-    out = torch.empty((b, c, h, w), dtype=torch.float32, device=img.device)
-    block_w = 1 << (w - 1).bit_length()
-    block_c = max(2, 1 << (c - 1).bit_length())  # gray pads C to 2
-    rows = max(1, _TILE // (block_w * block_c))
-    kernel = _kernel()
-    with torch.cuda.device(img.device):
-        kernel[(b,)](
-            img, draws, noise if noise is not None else img, out, h, w,
-            C=c, LO=lo, HI=hi, FILL=FILLS[fill], HAS_BLOCK=has_block,
-            RELIGHT=relight, USE_NORM=use_norm, U8=img.dtype == torch.uint8,
-            ROWS=rows, BLOCK_W=block_w, BLOCK_C=block_c, num_warps=4)
-    return out
-
-
 augment_batch.launches = 0  # kernel launches since the last reset
 
 
@@ -302,108 +274,3 @@ def device_input_stage(img: torch.Tensor, draws: Optional[torch.Tensor],
     if gauss_light:
         six[:, 3:] = draws
     return augment_batch(img, six, relight=gauss_light, use_norm=use_norm)
-
-
-@functools.lru_cache(maxsize=None)
-def _kernel():
-    """Import Triton and JIT-decorate the kernel sources (first launch only).
-
-    Triton's cache goes to `msml_torch/_build/triton` unless TRITON_CACHE_DIR
-    is set, so a checkout builds its kernel from its own sources."""
-    global tl, _augment_tile
-    os.environ.setdefault("TRITON_CACHE_DIR", _TRITON_CACHE)
-    import triton
-    import triton.language as tl  # noqa: F811  (binds the module global)
-
-    _augment_tile = triton.jit(_augment_tile)
-    return triton.jit(_augment_kernel)
-
-
-# ---------------------------------------------------------------- Triton
-# The two functions below are Triton sources; _kernel() decorates them.
-
-def _augment_tile(img_ptr, noise_ptr, off, y, x, mask, x0, y0, bw, cx, cy,
-                  scale, HAS_BLOCK: tl.constexpr, FILL: tl.constexpr,
-                  RELIGHT: tl.constexpr, U8: tl.constexpr):
-    """One tile of the image after the block fill and the light (before the
-    division by the max)."""
-    v = tl.load(img_ptr + off, mask=mask, other=0)
-    if U8:
-        v = v.to(tl.float32) / 255.0
-    xf = x.to(tl.float32)
-    yf = y.to(tl.float32)
-    if HAS_BLOCK:
-        inside = (xf >= x0) & (xf < x0 + bw) & (yf >= y0) & (yf < y0 + bw)
-        if FILL == 0:
-            v = tl.where(inside, 0.0, v)
-        elif FILL == 1:
-            v = tl.where(inside, 1.0, v)
-        else:
-            v = tl.where(inside, tl.load(noise_ptr + off, mask=mask & inside,
-                                         other=0.0), v)
-    if RELIGHT:
-        d2 = (xf - cx) * (xf - cx) + (yf - cy) * (yf - cy)
-        v = v * (tl.exp(-0.5 * d2 / 16384.0) * scale)
-    return v
-
-
-def _augment_kernel(img_ptr, draws_ptr, noise_ptr, out_ptr, H, W,
-                    C: tl.constexpr, LO: tl.constexpr, HI: tl.constexpr,
-                    FILL: tl.constexpr, HAS_BLOCK: tl.constexpr,
-                    RELIGHT: tl.constexpr, USE_NORM: tl.constexpr,
-                    U8: tl.constexpr, ROWS: tl.constexpr,
-                    BLOCK_W: tl.constexpr, BLOCK_C: tl.constexpr):
-    """One program per image: img (B, H, W, C) -> out (B, C, H, W).
-
-    Tiles are (ROWS, BLOCK_W, BLOCK_C): addresses run along C on the NHWC
-    load and along W on the NCHW store, so Triton can coalesce both."""
-    b = tl.program_id(0).to(tl.int64)
-    d = draws_ptr + b * 6
-    r0 = tl.load(d)
-    r1 = tl.load(d + 1)
-    r2 = tl.load(d + 2)
-    r3 = tl.load(d + 3)
-    r4 = tl.load(d + 4)
-    r5 = tl.load(d + 5)
-    wf = W.to(tl.float32)
-    ratio = (LO + tl.floor(r0 * (HI - LO))) * 0.01
-    bw = tl.floor(tl.sqrt_rn(ratio) * wf)
-    x0 = tl.floor(r1 * (wf - bw + 1.0))
-    y0 = tl.floor(r2 * (wf - bw + 1.0))
-    cx = r3 * wf
-    cy = r4 * H.to(tl.float32)
-    scale = 0.7 + r5 * 0.7
-
-    # one 64-bit step to the image, 32-bit offsets inside it
-    base = b * H * W * C
-    img_ptr += base
-    noise_ptr += base
-    out_ptr += base
-    rows = tl.arange(0, ROWS)[:, None, None]
-    x = tl.arange(0, BLOCK_W)[None, :, None]
-    ch = tl.arange(0, BLOCK_C)[None, None, :]
-    xc_ok = (x < W) & (ch < C)
-
-    if RELIGHT:
-        acc = tl.full((ROWS, BLOCK_W, BLOCK_C), float("-inf"), tl.float32)
-        for y_start in range(0, H, ROWS):
-            y = y_start + rows
-            mask = (y < H) & xc_ok
-            v = _augment_tile(img_ptr, noise_ptr, (y * W + x) * C + ch,
-                              y, x, mask, x0, y0, bw, cx, cy, scale,
-                              HAS_BLOCK, FILL, RELIGHT, U8)
-            acc = tl.maximum(acc, tl.where(mask, v, float("-inf")))
-        denom = tl.maximum(tl.max(tl.max(tl.max(acc, axis=2), axis=1),
-                                  axis=0), 1e-6)
-
-    for y_start in range(0, H, ROWS):
-        y = y_start + rows
-        mask = (y < H) & xc_ok
-        v = _augment_tile(img_ptr, noise_ptr, (y * W + x) * C + ch,
-                          y, x, mask, x0, y0, bw, cx, cy, scale,
-                          HAS_BLOCK, FILL, RELIGHT, U8)
-        if RELIGHT:
-            v = v / denom
-        if USE_NORM:
-            v = (v - 0.5) / 0.5
-        tl.store(out_ptr + (ch * H + y) * W + x, v, mask=mask)

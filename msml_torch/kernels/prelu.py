@@ -42,8 +42,9 @@ import os
 
 import torch
 
-from msml_torch.kernels.augment import _TRITON_CACHE
 
+_TRITON_CACHE = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "_build", "triton")
 _TILE = 2048  # elements per program (ROWS x BLOCK_HW)
 _REDUCE_BLOCK = 1024  # partials summed per step of the reduction loop
 _DTYPES = (torch.float32, torch.bfloat16)
