@@ -4,8 +4,8 @@ against the JAX stage it ports, on the CPU.
 Three holds: the jnp functions with their `jax.random` draws recomputed and
 injected as r0..r5; the Pallas kernel under the TPU interpreter, whose PRNG
 is stubbed to zeros; and the property tests of tests/test_device_augment.py.
-The Triton kernel itself runs only on the card (tests/test_torch_cuda.py,
-chip_smoke.py).
+The CUDA kernel itself runs only on the card (tests/test_torch_cuda.py,
+chip_smoke.py); tests/test_torch_augment_cluster.py replays its blocking.
 """
 
 import jax
