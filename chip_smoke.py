@@ -57,7 +57,21 @@ Phases:
      model's eval features, and `msml_torch.cli.test --device-sweep` runs
      on it over a `.bin` of 40 synthetic PPM pairs;
   7. a summary line, the JSON line of the kernels (with their times, bounds
-     and launch counts), then the final JSON line.
+     and launch counts), then the final JSON line;
+  8. serve (run within phase 6, on the folder the training CLI wrote, so
+     its lines come before 7's): `conv3x3_fwd` and `prelu_fwd` against
+     their plain versions at the bucket batches 1, 2, 4, ..., 32 (bf16, the
+     eval forward's shapes, phase 2c/2d's tolerances); then `cli.serve`'s
+     weight-folder server (warmed up, max batch 32, a 5 ms window): its
+     /healthz keys, an /embed_batch of 37 images and 64 concurrent /embed
+     requests with PPM bodies, every answer against a direct B = 512
+     forward (cosine >= 0.999), /metrics (65 requests, no error, a batch
+     of more than one), each kernel launched as often as the forwards and
+     sites say; then `tools.export_serving` on the folder and an
+     `--artifact` server (answers against the weight-folder server's,
+     cosine >= 0.9999; the same launches per forward), and `cli.embed`
+     over 40 PPM files; the forward's ms per bucket, /embed latency at
+     concurrency 1 and 64 and /embed_batch img/s, beside the card's name.
 
 Exits non-zero, without the final line, when CUDA is missing or any check
 fails. Needs no network, PyYAML, OpenCV or Pillow.
@@ -113,6 +127,11 @@ DALPHA_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-3}  # relative L2
 BF16_MIN_COS = 0.99     # bf16 vs f32 feature cosine
 CPU_MIN_COS = 0.9999    # card f32 (TF32 off) vs CPU f32 feature cosine
 MAIN_PATH = dict(lo=40, hi=41, fill="black", relight=False, use_norm=True)
+SERVE_MAX_BATCH = 32    # cli.serve's default: buckets 1, 2, 4, ..., 32
+SERVE_WINDOW_MS = 5.0   # cli.serve's default batching window
+SERVE_MIN_COS = 0.999   # served bf16 features vs a B = 512 forward (cuDNN
+                        # picks other algorithms at other batch sizes)
+ARTIFACT_MIN_COS = 0.9999  # the exported program vs the live model
 AUGMENT_ODD = ((4, 112, 17, 3), (4, 9, 112, 1), (4, 113, 112, 3))  # (B, H, W, C)
 
 
@@ -984,9 +1003,10 @@ def phase_train_cpu_parity(seed: int, b: int = 4):
           f"{((ug[worst] - uc[worst]).norm() / uc[worst].norm()).item():.2e})")
 
 
-def phase_cli(seed: int, steps: int = 20, resume_to: int = 24):
-    """This slice's main path: the training CLI on the card; -> (launches,
-    img/s from its last Speed line)."""
+def phase_cli(seed: int, smi: str, steps: int = 20, resume_to: int = 24):
+    """The training CLI on the card, then the sweep and the serving surface
+    on the folder it wrote; -> (launches, img/s from its last Speed line,
+    the sweep's launches, the server's launches and kernel errors)."""
     from msml_torch.cli.train import main, parse_args
     from msml_torch.core.checkpoint import all_steps
     from msml_torch.core.config import Config
@@ -1031,7 +1051,9 @@ def phase_cli(seed: int, steps: int = 20, resume_to: int = 24):
         print(f"[6 cli] --resume from step {steps} ran to step {state.step}; "
               f"checkpoints {all_steps(output)}")
         sweep_launches = cli_sweep(seed, state, output, out)
-    return launches, speeds[-1], sweep_launches
+        del state
+        serve_launches, serve_errs = cli_serve(seed, output, out, smi)
+    return launches, speeds[-1], sweep_launches, serve_launches, serve_errs
 
 
 def cli_sweep(seed: int, state, folder: str, scratch: str, pairs: int = 40):
@@ -1079,6 +1101,388 @@ def cli_sweep(seed: int, state, folder: str, scratch: str, pairs: int = 40):
     return launches
 
 
+def post(url: str, body: bytes, timeout: float = 300.0):
+    """POST `body`; -> (seconds on the host clock, the JSON answer)."""
+    import urllib.request
+
+    t0 = time.perf_counter()
+    req = urllib.request.Request(url, data=body, method="POST")
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        out = json.loads(r.read())
+    return time.perf_counter() - t0, out
+
+
+def get(url: str, timeout: float = 60.0) -> bytes:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return r.read()
+
+
+def npy_bytes(x: np.ndarray) -> bytes:
+    import io
+
+    buf = io.BytesIO()
+    np.save(buf, x)
+    return buf.getvalue()
+
+
+def percentile_ms(seconds, q: float) -> float:
+    return float(np.percentile(np.asarray(seconds) * 1e3, q))
+
+
+def start_server(runner, max_batch: int = SERVE_MAX_BATCH):
+    """`cli.serve`'s server on port 0 (the runner warmed up first, as
+    `main` does); -> (base URL, httpd, batcher, the sizes of the batches
+    it runs, before padding)."""
+    import threading
+
+    from msml_torch.cli import serve
+
+    serve.warmup(runner, max_batch)
+    torch.cuda.synchronize()
+    httpd, batcher = serve.build_server(runner, port=0, max_batch=max_batch,
+                                        window_ms=SERVE_WINDOW_MS)
+    sizes = []
+    observe = batcher.metrics.observe_batch
+
+    def recorded(n):
+        sizes.append(int(n))
+        observe(n)
+
+    batcher.metrics.observe_batch = recorded
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    return (f"http://127.0.0.1:{httpd.server_address[1]}", httpd, batcher,
+            sizes)
+
+
+def stop_server(httpd, batcher):
+    httpd.shutdown()
+    httpd.server_close()
+    batcher.close()
+
+
+def decoder_survey() -> str:
+    """What this machine offers an image decoder: Pillow and OpenCV (each
+    imported in a child process, so that this one stays free of them),
+    libjpeg headers, nvJPEG."""
+    import glob
+
+    found = []
+    for name in ("PIL", "cv2"):
+        code = f"import {name}; print({name}.__version__)"
+        proc = subprocess.run([sys.executable, "-c", code],
+                              capture_output=True, text=True, timeout=120)
+        found.append(f"{name} " + (proc.stdout.strip() if proc.returncode == 0
+                                   else "absent"))
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for what, pattern in (("jpeglib.h", "/usr/include/**/jpeglib.h"),
+                          ("turbojpeg.h", "/usr/include/**/turbojpeg.h"),
+                          ("nvjpeg.h", f"{home}/include/nvjpeg.h"),
+                          ("libnvjpeg", f"{home}/lib64/libnvjpeg.so*")):
+        hits = sorted(glob.glob(pattern, recursive=True))
+        found.append(f"{what} " + (", ".join(hits) if hits else "absent"))
+    return "; ".join(found)
+
+
+def serve_breakdown(runner, x: np.ndarray) -> dict:
+    """Host-clock ms (median) of the parts of an /embed_batch request:
+    `runner.infer` (two forwards, copies, l2) in this thread and as the
+    first call of a new thread, as the server's handler threads make it,
+    and the JSON answer encoded and decoded."""
+    import threading
+
+    def timed(fn) -> float:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    infer = statistics.median(timed(lambda: runner.infer(x))
+                              for _ in range(5))
+    fresh = []
+    for _ in range(3):
+        t = threading.Thread(target=lambda: fresh.append(
+            timed(lambda: runner.infer(x))))
+        t.start()
+        t.join()
+    y = runner.infer(x)
+    answer = statistics.median(timed(lambda: json.loads(json.dumps(
+        {"embeddings": y.tolist()}))) for _ in range(5))
+    return {"infer": infer, "fresh": statistics.median(fresh),
+            "json": answer}
+
+
+def count_forwards(runner) -> list:
+    """Count the runner's raw forwards (two per batch: flip-sum)."""
+    calls = []
+    raw = runner._raw
+
+    def counted_raw(x):
+        calls.append(len(x))
+        return raw(x)
+
+    runner._raw = counted_raw
+    return calls
+
+
+def serve_kernels_at_buckets(seed: int, errs: dict):
+    """conv3x3_fwd and prelu_fwd against their plain versions at every
+    bucket batch, at the eval forward's shapes in bf16."""
+    from msml_torch.kernels.conv3x3 import conv3x3_fwd, conv3x3_reference
+    from msml_torch.kernels.prelu import prelu_fwd, prelu_reference
+    from msml_torch.cli.serve import _buckets
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 8)
+    prelu_shapes = sorted(set(prelu_sites(seed)))
+    worst = 0.0
+    for b in _buckets(SERVE_MAX_BATCH):
+        for c, h, w in CONV_SHAPES:
+            x = torch.randn((b, c, h, w), generator=gen,
+                            device="cuda").bfloat16()
+            wt = (torch.randn((c, c, 3, 3), generator=gen, device="cuda")
+                  / 24).bfloat16()
+            got, ref = conv3x3_fwd(x, wt), conv3x3_reference(x.float(),
+                                                             wt.float())
+            rel = rel_l2(got, ref)
+            if not rel <= CONV_TOL[torch.bfloat16][0]:
+                fail(f"serve: conv3x3_fwd bf16 {(b, c, h, w)}: relative L2 "
+                     f"error {rel} > {CONV_TOL[torch.bfloat16][0]}")
+            worst = max(worst, rel)
+            errs["conv3x3_fwd"] = max(errs["conv3x3_fwd"], (
+                got.float() - ref).abs().max().item())
+        for c, h, w in prelu_shapes:
+            x = torch.randn((b, c, h, w), generator=gen,
+                            device="cuda").bfloat16()
+            a = torch.rand((c,), generator=gen, device="cuda") * 0.5
+            if not torch.equal(prelu_fwd(x, a), prelu_reference(x, a)):
+                fail(f"serve: prelu_fwd bf16 {(b, c, h, w)} not equal to "
+                     "the plain version")
+    torch.cuda.synchronize()
+    print(f"[8 serve] kernels at the bucket batches "
+          f"{_buckets(SERVE_MAX_BATCH)}, bf16: conv3x3_fwd at "
+          f"{len(CONV_SHAPES)} site shapes, relative L2 error <= {worst:.2e} "
+          f"(tolerance {CONV_TOL[torch.bfloat16][0]}); prelu_fwd at "
+          f"{len(prelu_shapes)} site shapes exactly equal to the plain "
+          "version")
+
+
+def dispatch_us(seed: int) -> dict:
+    """Host microseconds per call (2,000 calls, the last one synchronised;
+    median of 3) of `prelu_fwd` and `conv3x3_fwd` through their custom ops
+    and of their CUDA implementations called directly, at B = 1, 28 x 28
+    bf16, where the host's time is all there is."""
+    from msml_torch.kernels import conv3x3, prelu
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 9)
+    x = torch.randn((1, 64, 28, 28), generator=gen, device="cuda").bfloat16()
+    a = torch.rand((64,), generator=gen, device="cuda")
+    w = (torch.randn((64, 64, 3, 3), generator=gen, device="cuda")
+         / 24).bfloat16()
+
+    def per_call(fn, n: int = 2000) -> float:
+        runs = []
+        for _ in range(3):
+            for _ in range(50):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) / n * 1e6)
+        return statistics.median(runs)
+
+    return {"prelu_fwd": (per_call(lambda: prelu.prelu_fwd(x, a)),
+                          per_call(lambda: prelu._prelu_fwd_cuda(x, a))),
+            "conv3x3_fwd": (per_call(lambda: conv3x3.conv3x3_fwd(x, w)),
+                            per_call(lambda: conv3x3._conv3x3_fwd_cuda(x, w)))}
+
+
+def cli_serve(seed: int, folder: str, scratch: str, smi: str):
+    """[8 serve] `cli.serve` on the folder the training CLI wrote: a
+    weight-folder server, an exported-artifact server, and `cli.embed`;
+    -> (the weight-folder server's launch counts, max abs errors of the
+    kernels at the bucket batches)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from msml_torch.cli import embed as cli_embed
+    from msml_torch.cli import serve
+    from msml_torch.core.weight_folder import load_weight_folder
+    from msml_torch.data.bin_loader import ppm_encode
+    from msml_torch.eval.folder_eval import tensorize_folder_img
+    from msml_torch.eval.verification import l2_normalize_np
+    from msml_torch.tools import export_serving
+
+    print(f"[8 serve] image decoders on this machine: {decoder_survey()}")
+    errs = {"conv3x3_fwd": 0.0}
+    serve_kernels_at_buckets(seed, errs)
+    print(f"[8 serve] {smi}: host time per call at B = 1, 28 x 28 bf16, "
+          "through the custom op / the CUDA implementation called directly: "
+          + "; ".join(f"{k} {op:.1f} / {direct:.1f} us" for k, (op, direct)
+                      in dispatch_us(seed).items()))
+    t_phase = time.perf_counter()
+
+    # the images: 37 for /embed_batch, 64 for /embed, the first 40 of
+    # those for cli.embed, in one reference batch of 512 with others
+    rs = np.random.RandomState(seed + 8)
+    raw = rs.randint(0, 256, (B, H, W, 3)).astype(np.uint8)
+    x = np.stack([tensorize_folder_img(a) for a in raw])
+    batch_idx, single_idx = np.arange(37), np.arange(37, 37 + 64)
+    _, model = load_weight_folder(folder, device="cuda")
+    fwd = export_serving.EvalForward(model)
+    with torch.inference_mode():
+        xt = torch.as_tensor(x, device="cuda")
+        ref = (fwd(xt) + fwd(xt.flip(2))).float().cpu().numpy()
+        bucket_ms = {b: time_ms(lambda: fwd(xt[:b]), windows=3, per_window=5)
+                     for b in serve._buckets(SERVE_MAX_BATCH)}
+    ref = l2_normalize_np(ref)
+    del model, fwd, xt
+
+    def min_cos(got, idx) -> float:
+        return float(np.min(np.sum(l2_normalize_np(np.asarray(
+            got, np.float64)) * ref[idx], axis=1)))
+
+    # the weight-folder server: warm-up, then the counted requests
+    runner = serve.runner_from_weight_folder(folder, "cuda")
+    forwards = count_forwards(runner)
+    base, httpd, batcher, sizes = start_server(runner)
+    try:
+        health = json.loads(get(base + "/healthz"))
+        want_keys = {"status", "input_hwc", "flip_sum", "l2_norm", "source",
+                     "network", "dim"}
+        if set(health) != want_keys or health["input_hwc"] != [H, W, 3]:
+            fail(f"serve: /healthz {health}")
+        forwards.clear()
+        sizes.clear()
+        reset_launches()
+        _, out = post(base + "/embed_batch", npy_bytes(x[batch_idx]))
+        batch_answer = np.asarray(out["embeddings"])
+        bodies = [ppm_encode(raw[i]) for i in single_idx]
+        with ThreadPoolExecutor(64) as pool:
+            replies = list(pool.map(lambda body: post(base + "/embed", body),
+                                    bodies))
+        torch.cuda.synchronize()
+        launches = read_launches()
+        served = len(forwards)
+        single_answer = np.asarray([r[1]["embedding"] for r in replies])
+        lat_64 = [r[0] for r in replies]
+        m = dict(line.rsplit(" ", 1) for line in get(
+            base + "/metrics").decode().splitlines()
+            if line and not line.startswith("#"))
+        single_sizes = sizes[2:]
+        want = {"augment_batch": 0, "prelu_fwd": served * PRELU_SITES,
+                "prelu_bwd": 0, "conv3x3_fwd": served * CONV_SITES,
+                "conv3x3_dw": 0}
+        if launches != want or sizes[:2] != [32, 5]:
+            fail(f"serve: launches {launches} over {served} forwards, "
+                 f"expected {want}; batch sizes {sizes}")
+        if (float(m["msml_requests_total"]) != 65
+                or float(m["msml_request_errors_total"]) != 0
+                or float(m["msml_images_total"]) != 37 + 64
+                or not max(single_sizes) > 1):
+            fail(f"serve: /metrics {m}, /embed batch sizes {single_sizes}")
+        cos_batch = min_cos(batch_answer, batch_idx)
+        cos_single = min_cos(single_answer, single_idx)
+        if not min(cos_batch, cos_single) >= SERVE_MIN_COS:
+            fail(f"serve: min cosine to the B = {B} forward: /embed_batch "
+                 f"{cos_batch}, /embed {cos_single} (< {SERVE_MIN_COS})")
+
+        # numbers: one client at a time, then a batch of 32 at a time
+        lat_1 = [post(base + "/embed", bodies[i % 64])[0] for i in range(32)]
+        body32 = npy_bytes(x[:32])
+        t0 = time.perf_counter()
+        for _ in range(8):
+            post(base + "/embed_batch", body32)
+        batch_img_s = 8 * 32 / (time.perf_counter() - t0)
+        parts = serve_breakdown(runner, x[:32])
+    finally:
+        stop_server(httpd, batcher)
+    print(f"[8 serve] {smi}: weight-folder server, max batch "
+          f"{SERVE_MAX_BATCH}, window {SERVE_WINDOW_MS} ms: /healthz keys "
+          f"{sorted(health)}; /embed_batch of 37 (batches {sizes[:2]}, "
+          f"buckets 32 + 8) and 64 concurrent /embed (PPM): min cosine to a "
+          f"direct B = {B} forward {cos_batch:.6f} / {cos_single:.6f} (>= "
+          f"{SERVE_MIN_COS}); /metrics requests {m['msml_requests_total']}, "
+          f"errors {m['msml_request_errors_total']}, batches "
+          f"{m['msml_device_batches_total']}, images "
+          f"{m['msml_images_total']}; /embed batch sizes "
+          f"{sorted(single_sizes, reverse=True)}; {served} forwards, "
+          f"launches {launches}")
+    print(f"[8 serve] {smi}: the eval forward (EvalForward, bf16) in ms per "
+          "bucket by CUDA events: " + ", ".join(f"B={b} {ms:.3f}" for b, ms in
+                                         bucket_ms.items()))
+    print(f"[8 serve] {smi}: /embed latency (host clock, HTTP included) "
+          f"concurrency 1: p50 {percentile_ms(lat_1, 50):.2f} ms, p99 "
+          f"{percentile_ms(lat_1, 99):.2f} ms over 32; concurrency 64: p50 "
+          f"{percentile_ms(lat_64, 50):.2f} ms, p99 "
+          f"{percentile_ms(lat_64, 99):.2f} ms over 64; /embed_batch of 32: "
+          f"{batch_img_s:.1f} img/s (8 requests in turn); of a request of "
+          f"32, host clock: runner.infer {parts['infer']:.2f} ms in the "
+          f"main thread, {parts['fresh']:.2f} ms as the first call of a new "
+          f"thread (a handler's), the JSON answer {parts['json']:.2f} ms "
+          "(encoded and decoded)")
+
+    # the exported artifact, served on the same images
+    artifact = os.path.join(scratch, "model.pt2")
+    t0 = time.perf_counter()
+    export_serving.main(export_serving.parse_args(
+        ["--weight_folder", folder, "--out", artifact, "--device", "cuda"]))
+    export_s = time.perf_counter() - t0
+    arunner = serve.runner_from_artifact(artifact, "cuda")
+    aforwards = count_forwards(arunner)
+    base, httpd, batcher, _ = start_server(arunner)
+    try:
+        aforwards.clear()
+        reset_launches()
+        _, out = post(base + "/embed_batch", npy_bytes(x[batch_idx]))
+        torch.cuda.synchronize()
+        alaunches = read_launches()
+    finally:
+        stop_server(httpd, batcher)
+    artifact_answer = np.asarray(out["embeddings"])
+    cos_art = float(np.min(np.sum(artifact_answer * batch_answer, axis=1)))
+    want = {"augment_batch": 0, "prelu_fwd": len(aforwards) * PRELU_SITES,
+            "prelu_bwd": 0, "conv3x3_fwd": len(aforwards) * CONV_SITES,
+            "conv3x3_dw": 0}
+    if alaunches != want or not cos_art >= ARTIFACT_MIN_COS:
+        fail(f"serve --artifact: launches {alaunches} over {len(aforwards)} "
+             f"forwards, expected {want}; min cosine to the weight-folder "
+             f"server {cos_art} (< {ARTIFACT_MIN_COS})")
+    print(f"[8 serve] {smi}: tools.export_serving wrote "
+          f"{os.path.getsize(artifact)} "
+          f"bytes in {export_s:.1f} s; the artifact server's /embed_batch "
+          f"of 37: min cosine to the weight-folder server's {cos_art:.8f} "
+          f"(>= {ARTIFACT_MIN_COS}); {len(aforwards)} forwards, launches "
+          f"{alaunches}")
+
+    # cli.embed over 40 PPM files of the /embed images
+    src = os.path.join(scratch, "faces")
+    os.makedirs(src)
+    for k, i in enumerate(single_idx[:40]):
+        with open(os.path.join(src, f"{k:03d}.ppm"), "wb") as f:
+            f.write(ppm_encode(raw[i]))
+    out_npy = os.path.join(scratch, "feats.npy")
+    feats, names = cli_embed.main(cli_embed.parse_args(
+        ["--weight_folder", folder, "--src", src, "--out", out_npy,
+         "--device", "cuda"]))
+    with open(out_npy + ".names.txt") as f:
+        listed = f.read().split()
+    saved = np.load(out_npy)
+    cos_embed = float(np.min(np.sum(saved * single_answer[:40], axis=1)))
+    if (listed != [f"{k:03d}.ppm" for k in range(40)] or names != listed
+            or saved.shape != (40, 512)
+            or not cos_embed >= SERVE_MIN_COS):
+        fail(f"cli.embed: names {listed[:3]}..., shape {saved.shape}, min "
+             f"cosine to the server's /embed answers {cos_embed}")
+    print(f"[8 serve] {smi}: cli.embed over 40 PPM images: feats.npy "
+          f"{saved.shape} + names file; min cosine to the server's /embed "
+          f"answers {cos_embed:.6f} (>= {SERVE_MIN_COS}); phase "
+          f"{time.perf_counter() - t_phase:.1f} s host clock after the "
+          "kernel checks")
+    return launches, errs
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -1097,7 +1501,8 @@ def main(argv=None):
     del model
     train_launches, train_img_s = phase_train(args.seed)
     phase_train_cpu_parity(args.seed)
-    cli_launches, cli_img_s, cli_sweep_launches = phase_cli(args.seed)
+    (cli_launches, cli_img_s, cli_sweep_launches, serve_launches,
+     serve_errs) = phase_cli(args.seed, smi)
 
     # this slice's path is the training CLI: its launches; the uint8 input
     # stage's times at B = 128, and the eval and train-step paths' launches
@@ -1113,6 +1518,9 @@ def main(argv=None):
         e["launches_sweep"] = sweep_launches[e["name"]]
         e["launches_train_step"] = train_launches[e["name"]]
         e["launches_cli_sweep"] = cli_sweep_launches[e["name"]]
+        e["launches_serve"] = serve_launches[e["name"]]
+        e["max_abs_err"] = max(e["max_abs_err"],
+                               serve_errs.get(e["name"], 0.0))
     print(f"[7 summary] {smi}: CLI {cli_img_s:.1f} img/s (last Speed line); "
           f"train step {train_img_s:.1f} img/s bf16 at B={B_TRAIN}; eval "
           f"forward {eval_img_s:.1f} img/s at B={B}; "

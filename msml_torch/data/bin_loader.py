@@ -24,7 +24,7 @@ def ppm_encode(img_rgb: np.ndarray) -> bytes:
         img_rgb, np.uint8).tobytes()
 
 
-def _ppm_decode(buf: bytes) -> np.ndarray:
+def ppm_decode(buf: bytes) -> np.ndarray:
     """A binary PPM with maxval 255 -> (H, W, 3) uint8 RGB."""
     fields, pos = [], 2
     while len(fields) < 3:
@@ -48,7 +48,7 @@ def imdecode(buf: bytes, to_rgb: bool = True) -> np.ndarray:
     """mx.image.imdecode parity via cv2 (same OpenCV jpeg path); a binary
     PPM is decoded here, to the same array."""
     if buf[:2] == b"P6":
-        img = _ppm_decode(buf)
+        img = ppm_decode(buf)
         return img if to_rgb else img[:, :, ::-1]
     import cv2
 

@@ -12,7 +12,10 @@ go in as `c_void_p`, every int as `c_int`, and each entry point returns
 the `cudaError_t` of its launch, which `check` turns into an exception
 with the text of the library's `cuda_error_string`.
 `nvcc` is looked up in `$CUDA_HOME/bin`, then on `PATH`; the module
-imports without it, and a build without it raises.
+imports without it, and a build without it raises. Each library builds
+once in a process: a thread that reaches its first use while another
+thread builds it waits for that build and loads the result (two sources
+still build side by side).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -32,6 +36,8 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 builds: dict = {}  # name -> {"seconds", "nvcc", "log", "path"}, this process
+_LOCKS: dict = {}  # name -> the lock held while its library is built
+_LOCKS_GUARD = threading.Lock()
 
 
 def find_nvcc() -> str:
@@ -60,25 +66,32 @@ def load(name: str) -> ctypes.CDLL:
         digest = hashlib.sha256(f.read() + " ".join(FLAGS).encode())
     lib_path = os.path.join(BUILD_DIR,
                             f"lib{name}_{digest.hexdigest()[:16]}.so")
-    if not os.path.exists(lib_path):
-        nvcc = find_nvcc()
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{lib_path}.{os.getpid()}.tmp"
-        t0 = time.perf_counter()
-        proc = subprocess.run([nvcc, *FLAGS, "-o", tmp, src],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed to build {src} "
-                               f"(exit {proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, lib_path)
-        builds[name] = {"seconds": time.perf_counter() - t0,
-                        "nvcc": nvcc_version(nvcc),
-                        "log": proc.stdout + proc.stderr, "path": lib_path}
+    with _LOCKS_GUARD:
+        lock = _LOCKS.setdefault(name, threading.Lock())
+    with lock:
+        if not os.path.exists(lib_path):
+            _build(name, src, lib_path)
     lib = ctypes.CDLL(lib_path)
     lib.cuda_error_string.restype = ctypes.c_char_p
     lib.cuda_error_string.argtypes = [ctypes.c_int]
     return lib
+
+
+def _build(name: str, src: str, lib_path: str) -> None:
+    nvcc = find_nvcc()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{lib_path}.{os.getpid()}.tmp"
+    t0 = time.perf_counter()
+    proc = subprocess.run([nvcc, *FLAGS, "-o", tmp, src],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed to build {src} "
+                           f"(exit {proc.returncode}):\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, lib_path)
+    builds[name] = {"seconds": time.perf_counter() - t0,
+                    "nvcc": nvcc_version(nvcc),
+                    "log": proc.stdout + proc.stderr, "path": lib_path}
 
 
 def signature(fn, pointers: int, ints: int) -> None:

@@ -65,7 +65,11 @@ Not yet: `wgmma`, TMA, `ldmatrix`.
 On a CPU tensor the wrappers run the plain versions, `conv3x3_reference`
 and `conv3x3_dw_reference`: the sum over the nine taps of an `einsum` of
 the shifted input, the TPU kernel's tap decomposition, in f32 (f64 for f64
-inputs). On a CUDA tensor they launch the kernel or raise.
+inputs). On a CUDA tensor they launch the kernel or raise. The forward is
+the custom op `msml_torch::conv3x3_fwd` (a CPU and a CUDA implementation
+and a fake one that gives the shape), so that an exported program
+(`tools/export_serving.py`) runs the kernel; dW, on the training path
+only, is a plain function.
 """
 
 from __future__ import annotations
@@ -169,10 +173,28 @@ def _lib():
 
 def conv3x3_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """y = conv3x3(x, w): the CUDA kernel on the card, the plain version on
-    the CPU. x (N, 64, H, W) and w (64, 64, 3, 3), contiguous, one dtype."""
+    the CPU. x (N, 64, H, W) and w (64, 64, 3, 3), contiguous, one dtype.
+
+    The custom op `torch.ops.msml_torch.conv3x3_fwd`, so that `torch.export`
+    keeps the kernel as one node of its graph; its implementations check
+    the rest."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"conv3x3_fwd: unsupported device {x.device}")
+    return torch.ops.msml_torch.conv3x3_fwd(x, w)
+
+
+@torch.library.custom_op("msml_torch::conv3x3_fwd", mutates_args=(),
+                         device_types="cpu")
+def _conv3x3_fwd_op(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     _check(x, w, (w.shape[0], x.shape[1], 3, 3), w.shape[0], "conv3x3_fwd")
-    if x.device.type == "cpu":
-        return conv3x3_reference(x, w)
+    # contiguous, as the kernel's output and the fake's: an exported graph
+    # views the result on the strides that the fake gave
+    return conv3x3_reference(x, w).contiguous()
+
+
+@_conv3x3_fwd_op.register_kernel("cuda")
+def _conv3x3_fwd_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    _check(x, w, (w.shape[0], x.shape[1], 3, 3), w.shape[0], "conv3x3_fwd")
     n, _, h, wd = x.shape
     bf16 = x.dtype == torch.bfloat16
     blocking = (0,) * 5
@@ -190,6 +212,11 @@ def conv3x3_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     _nvcc.check(lib, err, "conv3x3_fwd")
     conv3x3_fwd.launches += 1
     return y
+
+
+@_conv3x3_fwd_op.register_fake
+def _conv3x3_fwd_fake(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return x.new_empty((x.shape[0], w.shape[0]) + tuple(x.shape[2:]))
 
 
 def dw_geometry(n: int, h: int, w: int):

@@ -31,14 +31,18 @@ no atomics, the result is the same on every run. Both launches are the one
 `prelu(x, alpha)` is the `torch.autograd.Function`. Its two wrappers,
 `prelu_fwd` and `prelu_bwd`, launch the Triton kernels for a CUDA tensor and
 run the plain PyTorch versions for a CPU tensor; a failure to build or
-launch raises. `prelu_reference` is the whole function written with
-`torch.where`, differentiated by autograd.
+launch raises. The forward is the custom op `msml_torch::prelu_fwd` (a CPU
+and a CUDA implementation and a fake one that gives the shape), so that an
+exported program (`tools/export_serving.py`) runs the kernel.
+`prelu_reference` is the whole function written with `torch.where`,
+differentiated by autograd.
 """
 
 from __future__ import annotations
 
 import functools
 import os
+import threading
 
 import torch
 
@@ -48,6 +52,10 @@ _TRITON_CACHE = os.path.join(os.path.dirname(os.path.dirname(
 _TILE = 2048  # elements per program (ROWS x BLOCK_HW)
 _REDUCE_BLOCK = 1024  # partials summed per step of the reduction loop
 _DTYPES = (torch.float32, torch.bfloat16)
+# Held around every launch: Triton compiles a kernel at its first launch
+# for each specialization, and a second thread (a server's handler beside
+# its batcher) then waits for that build instead of compiling beside it.
+_LAUNCH_LOCK = threading.Lock()
 
 tl = None  # triton.language, bound by _kernels() at the first launch
 
@@ -95,23 +103,44 @@ def _geometry(x: torch.Tensor):
 
 def prelu_fwd(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     """y = where(x >= 0, x, alpha * x): the Triton kernel on CUDA, the plain
-    version on the CPU."""
-    _check(x, alpha)
-    if x.device.type == "cpu":
-        return prelu_reference(x, alpha)
-    if x.device.type != "cuda":
+    version on the CPU.
+
+    The custom op `torch.ops.msml_torch.prelu_fwd`, so that `torch.export`
+    keeps the kernel as one node of its graph; its implementations check
+    the rest."""
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x.device}")
+    return torch.ops.msml_torch.prelu_fwd(x, alpha)
+
+
+@torch.library.custom_op("msml_torch::prelu_fwd", mutates_args=(),
+                         device_types="cpu")
+def _prelu_fwd_op(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    _check(x, alpha)
+    # contiguous, as the kernel's output and the fake's: an exported graph
+    # views the result on the strides that the fake gave
+    return prelu_reference(x, alpha).contiguous()
+
+
+@_prelu_fwd_op.register_kernel("cuda")
+def _prelu_fwd_cuda(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    _check(x, alpha)
     x = x.contiguous()
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
     n, c, hw, rows, block_hw, grid = _geometry(x)
     fwd, _, _ = _kernels()
-    with torch.cuda.device(x.device):
+    with _LAUNCH_LOCK, torch.cuda.device(x.device):
         fwd[grid](x, alpha, y, n, c, hw, ROWS=rows, BLOCK_HW=block_hw,
                   num_warps=4)
     prelu_fwd.launches += 1
     return y
+
+
+@_prelu_fwd_op.register_fake
+def _prelu_fwd_fake(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
 
 
 def prelu_bwd(g: torch.Tensor, x: torch.Tensor, alpha: torch.Tensor):
@@ -134,7 +163,7 @@ def prelu_bwd(g: torch.Tensor, x: torch.Tensor, alpha: torch.Tensor):
     parts = grid[1] * grid[2]
     partial = torch.empty((c, parts), dtype=torch.float32, device=x.device)
     _, bwd, reduce = _kernels()
-    with torch.cuda.device(x.device):
+    with _LAUNCH_LOCK, torch.cuda.device(x.device):
         bwd[grid](g, x, alpha, dx, partial, n, c, hw, ROWS=rows,
                   BLOCK_HW=block_hw, num_warps=4)
         reduce[(c,)](partial, da, parts, BLOCK=_REDUCE_BLOCK, num_warps=4)
@@ -164,8 +193,15 @@ def prelu(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     return _PReLU.apply(x, alpha)
 
 
-@functools.lru_cache(maxsize=None)
 def _kernels():
+    """The three JIT kernels, made at the first launch under the lock, so
+    that two threads never decorate the sources twice."""
+    with _LAUNCH_LOCK:
+        return _jit_kernels()
+
+
+@functools.lru_cache(maxsize=None)
+def _jit_kernels():
     """Import Triton and JIT-decorate the three sources (first launch only);
     the build goes to `msml_torch/_build/triton` unless TRITON_CACHE_DIR is
     set."""

@@ -20,6 +20,8 @@ the kernels' index arithmetic (csrc/conv3x3.cu) in numpy.
 import importlib.util
 import math
 import os
+import threading
+import types
 
 import jax
 import jax.numpy as jnp
@@ -540,10 +542,13 @@ def _fwd_bf16_by_rows(x, w):
 FWD_ROW_SHAPES = [(1, 1, 1), (1, 2, 3), (2, 5, 17), (1, 7, 28), (2, 3, 56),
                   (1, 3, 112), (1, 2, 129), (1, 2, 200), (40, 9, 20),
                   (140, 1, 2)]
+# the serving buckets' batches at the three site shapes: at B = 1 each
+# block makes one output row, at B = 32 a run of 7 to 28 rows
+BUCKET_SHAPES = [(n, s, s) for n in (1, 2, 8, 32) for s in (112, 56, 28)]
 
 
 @pytest.mark.parametrize("part", ["forward", "dx"])
-@pytest.mark.parametrize("n,h,w", FWD_ROW_SHAPES)
+@pytest.mark.parametrize("n,h,w", FWD_ROW_SHAPES + BUCKET_SHAPES)
 def test_fwd_bf16_rows_replayed_in_numpy(n, h, w, part):
     """fwd_bf16's runs, strips, landing row, pixel-major ring, halo, tap
     offsets, n8 tiles and store mask give the plain conv, forward and dX
@@ -565,7 +570,7 @@ def test_fwd_bf16_rows_replayed_in_numpy(n, h, w, part):
                                    (128, 28, 28), (512, 112, 112),
                                    (512, 28, 28), (3, 13, 17), (2, 5, 200),
                                    (1, 1, 512), (1, 7, 129), (300, 3, 9),
-                                   (1, 1, 1), (4, 9, 57)])
+                                   (1, 1, 1), (4, 9, 57)] + BUCKET_SHAPES)
 def test_fwd_rows_cover_every_output_once(n, h, w):
     """Every output pixel of every image is stored by exactly one (unit,
     row, warp group, n8 tile, column) of fwd_bf16; a warp owns at most
@@ -624,3 +629,47 @@ def test_failed_build_raises_with_the_compiler_output(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no sm_90a here"):
         _nvcc.load.__wrapped__("conv3x3")
     assert os.listdir(tmp_path / "build") == []
+
+
+def test_two_threads_at_first_use_build_once(monkeypatch, tmp_path):
+    """Two threads reach a library's first use together (a server's
+    batcher and an /embed_batch handler): a stand-in nvcc that takes a
+    while runs once, and both threads load its library."""
+    fake = tmp_path / "cuda" / "bin" / "nvcc"
+    fake.parent.mkdir(parents=True)
+    runs = tmp_path / "runs"
+    fake.write_text(
+        "#!/bin/sh\n"
+        "if [ \"$1\" = --version ]; then echo 'stand-in nvcc'; exit 0; fi\n"
+        f"echo build >> {runs}\n"
+        "sleep 1\n"
+        "while [ $# -gt 0 ]; do [ \"$1\" = -o ] && out=$2; shift; done\n"
+        "echo lib > \"$out\"\n")
+    fake.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setattr(_nvcc, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(_nvcc.ctypes, "CDLL", lambda path: types.
+                        SimpleNamespace(path=path, cuda_error_string=types.
+                                        SimpleNamespace()))
+    monkeypatch.setattr(_nvcc, "builds", {})
+    start = threading.Barrier(2)
+    libs, errors = [], []
+
+    def first_use():
+        start.wait()
+        try:
+            libs.append(_nvcc.load.__wrapped__("conv3x3"))
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=first_use) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+        assert not t.is_alive()
+    assert not errors
+    assert runs.read_text().splitlines() == ["build"]
+    assert len(libs) == 2 and libs[0].path == libs[1].path
+    assert list(_nvcc.builds) == ["conv3x3"]
+    assert os.listdir(tmp_path / "build") == [os.path.basename(libs[0].path)]

@@ -321,3 +321,30 @@ def test_conv3x3_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         conv3x3_fwd(torch.zeros((1, 64, 8, 8), device=cuda,
                                 dtype=torch.float16), w.half())
+
+
+@pytest.mark.parametrize("op", ["conv3x3_fwd", "prelu_fwd"])
+def test_custom_ops_launch_the_kernels(cuda, op):
+    """`torch.ops.msml_torch.<op>` on CUDA tensors launches the kernel (its
+    count rises by one) and equals the plain version, as an exported
+    program calls it."""
+    from msml_torch.kernels import conv3x3, prelu
+
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn((2, 64, 28, 28), generator=gen, device=cuda).bfloat16()
+    if op == "conv3x3_fwd":
+        other = (torch.randn((64, 64, 3, 3), generator=gen, device=cuda)
+                 / 24).bfloat16()
+        wrapper = conv3x3.conv3x3_fwd
+        want = conv3x3.conv3x3_reference(x.float(), other.float()).bfloat16()
+        tol = dict(atol=3e-2, rtol=2e-2)
+    else:
+        other = torch.rand((64,), generator=gen, device=cuda)
+        wrapper = prelu.prelu_fwd
+        want = prelu.prelu_reference(x, other)
+        tol = dict(atol=0, rtol=0)
+    before = wrapper.launches
+    got = getattr(torch.ops.msml_torch, op)(x, other)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    torch.testing.assert_close(got, want, **tol)

@@ -157,3 +157,54 @@ def test_wrappers_reject_bad_arguments():
     with pytest.raises(ValueError):
         prelu_bwd(torch.zeros(2, 3, 4, 4, dtype=torch.bfloat16), x,
                   torch.zeros(3))                           # g dtype
+
+
+def test_two_threads_at_first_launch_decorate_once(monkeypatch, tmp_path):
+    """Two threads reach the first launch together (a server's batcher and
+    an /embed_batch handler): Triton (a stand-in: a CPU-only machine has
+    none) is imported and the four sources are JIT-decorated once, and
+    both threads get the same kernels."""
+    import sys
+    import threading
+    import time
+    import types
+
+    from msml_torch.kernels import prelu as kprelu
+
+    decorated = []
+
+    def jit(fn):
+        decorated.append(fn.__name__)
+        time.sleep(0.2)  # the other thread arrives meanwhile
+        return types.SimpleNamespace(fn=fn)
+
+    language = types.ModuleType("triton.language")
+    triton = types.ModuleType("triton")
+    triton.jit, triton.language = jit, language
+    monkeypatch.setitem(sys.modules, "triton", triton)
+    monkeypatch.setitem(sys.modules, "triton.language", language)
+    monkeypatch.setenv("TRITON_CACHE_DIR", str(tmp_path))
+    monkeypatch.setattr(kprelu, "_tile", kprelu._tile)
+    monkeypatch.setattr(kprelu, "tl", None)
+    kprelu._jit_kernels.cache_clear()
+    start = threading.Barrier(2)
+    got = []
+
+    def first_launch():
+        start.wait()
+        got.append(kprelu._kernels())
+
+    try:
+        threads = [threading.Thread(target=first_launch) for _ in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+            assert not t.is_alive()
+        assert sorted(decorated) == sorted(
+            ["_tile", "_prelu_fwd_kernel", "_prelu_bwd_kernel",
+             "_prelu_reduce_kernel"])
+        assert len(got) == 2 and got[0] is got[1]
+        assert kprelu._tile.fn.__name__ == "_tile"
+    finally:
+        kprelu._jit_kernels.cache_clear()
