@@ -71,10 +71,36 @@ Phases:
      `--artifact` server (answers against the weight-folder server's,
      cosine >= 0.9999; the same launches per forward), and `cli.embed`
      over 40 PPM files; the forward's ms per bucket, /embed latency at
-     concurrency 1 and 64 and /embed_batch img/s, beside the card's name.
+     concurrency 1 and 64 and /embed_batch img/s, beside the card's name;
+  9. data (after 6, its lines before 7's): the training CLI fed from a RecordIO
+     rec, as users train. Pillow's and OpenCV's versions (it fails without
+     them), `os.cpu_count()` and the workers used (min(32, cores) for the
+     loader alone; webface's `nw` = 32 in the CLI). It writes, with the
+     port's tools, a rec of 200 ids x 12 views (2000 train images, 112 x
+     112 JPEG q80) and a `synth_val.bin` of 200 pairs, mask recs for every
+     key (so the 3D-mask branch runs) and procedural occluders, with their
+     seconds and bytes. Then the loader alone at B = 128 (uint8,
+     device_light): img/s over 10 batches after the first with the spawn
+     pool and with threads, the pool's start, the first two batches of
+     every worker count byte-equal to one worker's, masks in {0, 1} with
+     some 0s, labels in range; and the bare train step's ms alone beside
+     its ms while each pool makes batches as fast as it can (its workers
+     at the main process's priority, then at nice 10). Then `cli.train` on
+     the rec (`dataset: webface`, the flagship config, bf16, B = 128,
+     10572 classes) for 30 steps with a checkpoint every 10, asynchronous
+     saves and `--tensorboard`: every loss finite, each kernel launched as
+     per_step(30) says (as on synthetic data), the checkpoints that the
+     cadence and keep-3 leave, each loading, the last equal to the final
+     state; its Speed by window (saves and the epoch boundary marked)
+     beside phase 6's synthetic Speed, and each save's host time on the
+     loop beside its background write. Then a `--resume` to step 34; the
+     rec as `dataset: custom` with nw = min(32, cores) for 20 steps, at
+     the interpreter's default switch interval and at 0.5 ms; and a 4-step
+     `custom` run whose verification decodes the 200 JPEG pairs through
+     cv2.
 
 Exits non-zero, without the final line, when CUDA is missing or any check
-fails. Needs no network, PyYAML, OpenCV or Pillow.
+fails. Needs no network or PyYAML; phase 9 needs Pillow and OpenCV.
 """
 
 from __future__ import annotations
@@ -1005,7 +1031,7 @@ def phase_train_cpu_parity(seed: int, b: int = 4):
 
 def phase_cli(seed: int, smi: str, steps: int = 20, resume_to: int = 24):
     """The training CLI on the card, then the sweep and the serving surface
-    on the folder it wrote; -> (launches, img/s from its last Speed line,
+    on the folder it wrote; -> (launches, img/s of its Speed lines,
     the sweep's launches, the server's launches and kernel errors)."""
     from msml_torch.cli.train import main, parse_args
     from msml_torch.core.checkpoint import all_steps
@@ -1053,7 +1079,7 @@ def phase_cli(seed: int, smi: str, steps: int = 20, resume_to: int = 24):
         sweep_launches = cli_sweep(seed, state, output, out)
         del state
         serve_launches, serve_errs = cli_serve(seed, output, out, smi)
-    return launches, speeds[-1], sweep_launches, serve_launches, serve_errs
+    return launches, speeds, sweep_launches, serve_launches, serve_errs
 
 
 def cli_sweep(seed: int, state, folder: str, scratch: str, pairs: int = 40):
@@ -1098,6 +1124,348 @@ def cli_sweep(seed: int, state, folder: str, scratch: str, pairs: int = 40):
           f"(max abs diff {(got - want).abs().max().item():.3g}); avg_acc "
           + ", ".join(f"{r['lo']}%: {r['avg_acc']:.4f}" for r in rows)
           + f"; launches {launches}")
+    return launches
+
+
+REC_IDS, REC_VIEWS = 200, 12  # 200 x (12 - 2 held out) = 2000 train images
+REC_PAIRS = 200
+
+
+def write_mask_recs(root: str):
+    """mask_out.rec / mask.rec for every key of {root}/train.rec: the face
+    with its lower half painted over, and that mask (tests/
+    test_face_dataset.py builds them so), so the 3D-mask branch runs."""
+    from msml_torch.data.recordio import (IRHeader, IndexedRecordIO,
+                                          imdecode, imencode, pack, unpack)
+
+    src = IndexedRecordIO(os.path.join(root, "train.idx"),
+                          os.path.join(root, "train.rec"))
+    out = {n: IndexedRecordIO(os.path.join(root, f"{n}.idx"),
+                              os.path.join(root, f"{n}.rec"), "w")
+           for n in ("mask_out", "mask")}
+    m = np.full((H, W, 3), 255, np.uint8)
+    m[60:, :] = 0
+    mask_bytes = imencode(m)
+    for key in src.keys[1:]:  # key 0 is the header record
+        header, img_bytes = unpack(src.read_idx(key))
+        masked = imdecode(img_bytes).copy()
+        masked[60:, :] = 30
+        out["mask_out"].write_idx(key, pack(IRHeader(0, header.label, 0, 0),
+                                            imencode(masked)))
+        out["mask"].write_idx(key, pack(IRHeader(0, 0.0, 0, 0), mask_bytes))
+    src.close()
+    for w in out.values():
+        w.close()
+
+
+def loader_batches(ds, use_processes: bool, batches: int = 10):
+    """-> (the first two batches of epoch 0, seconds to the first batch,
+    img/s over `batches` batches after the first)."""
+    t0 = time.perf_counter()
+    it = ds.epoch(0, use_processes=use_processes)
+    first = [next(it)]
+    t1 = time.perf_counter()
+    for i in range(batches):
+        b = next(it)
+        if i == 0:
+            first.append(b)
+    t2 = time.perf_counter()
+    it.close()
+    return first, t1 - t0, batches * ds.batch_size / (t2 - t1)
+
+
+def step_beside_loader(run_step, ds, steps: int = 20):
+    """-> (ms a train step alone, then while a thread beside it draws
+    `ds`'s batches through its spawn pool and copies them to the card as
+    fast as they come: ms a step and the loader's img/s, first with the
+    workers at the main process's priority, then at nice 10). Host clock,
+    the card synchronized at both ends, after 5 warm steps."""
+    import threading
+
+    from msml_torch.data.pipeline import device_prefetch
+
+    def timed() -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            run_step()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / steps * 1e3
+
+    for _ in range(5):
+        run_step()
+    alone = timed()
+    stop, made = threading.Event(), [0]
+
+    def load():
+        epoch = 1
+        while not stop.is_set():
+            for _ in device_prefetch(ds.epoch(epoch, use_processes=True),
+                                     "cuda"):
+                made[0] += 1
+                if stop.is_set():
+                    break
+            epoch += 1
+
+    loader = threading.Thread(target=load, daemon=True)
+    loader.start()
+    while made[0] < 2:  # the loader at full rate before the clock starts
+        time.sleep(0.01)
+    out = [alone]
+    for nice in (0, 10):
+        for worker in ds._pool._pool:
+            os.setpriority(os.PRIO_PROCESS, worker.pid, nice)
+        n0, t0 = made[0], time.perf_counter()
+        out.append(timed())
+        out.append((made[0] - n0) * ds.batch_size
+                   / (time.perf_counter() - t0))
+    stop.set()
+    loader.join(timeout=120)
+    return out
+
+
+def same_batches(a, b) -> bool:
+    return len(a) == len(b) and all(
+        sorted(x) == sorted(y) and all(x[k].tobytes() == y[k].tobytes()
+                                       for k in x) for x, y in zip(a, b))
+
+
+def speed_lines(log: str) -> dict:
+    """The training log's Speed lines: {step: samples/s}."""
+    return {int(st): float(v) for v, st in re.findall(
+        r"Speed (\S+) samples/sec .* Global Step: (\d+) ", log)}
+
+
+def phase_data(seed: int, smi: str, synthetic_speeds, steps: int = 30,
+               resume_to: int = 34):
+    """The training CLI fed from a RecordIO rec with online occlusion;
+    -> the launches of its `steps` steps."""
+    try:
+        import cv2
+        import PIL
+    except ImportError as e:
+        fail(f"the RecordIO data path needs Pillow and OpenCV: {e}")
+    from msml_torch.cli.train import main, parse_args
+    from msml_torch.core.checkpoint import all_steps, checkpoint_path
+    from msml_torch.core.config import Config
+    from msml_torch.data.face_dataset import FaceByRandOccMask
+    from msml_torch.tools.make_occluders import main as make_occluders
+    from msml_torch.tools.make_synthetic_rec import write_dataset
+
+    cpus = os.cpu_count() or 1
+    nw = min(32, cpus)
+    print(f"[9 data] Pillow {PIL.__version__}, OpenCV {cv2.__version__}; "
+          f"os.cpu_count() {cpus}; the loader alone runs nw = min(32, "
+          f"{cpus}) = {nw} workers, the CLI webface's cfg.nw = 32")
+    with tempfile.TemporaryDirectory() as tmp:
+        root, occl = os.path.join(tmp, "rec"), os.path.join(tmp, "occ")
+        t0 = time.perf_counter()
+        write_dataset(root, ids=REC_IDS, per_id=REC_VIEWS, size=H,
+                      val_pairs=REC_PAIRS, seed=seed, quality=80,
+                      log_every=0)
+        write_mask_recs(root)
+        make_occluders(occl, num=8, seed=seed)
+        sizes = {n: os.path.getsize(os.path.join(root, n))
+                 for n in sorted(os.listdir(root)) if n.endswith(
+                     (".rec", ".bin"))}
+        print(f"[9 data] wrote {REC_IDS} ids x {REC_VIEWS} views "
+              f"({REC_IDS * (REC_VIEWS - 2)} train images, 112x112 JPEG q80, "
+              f"{REC_PAIRS} val pairs), mask recs and 5 x 8 occluder PNGs "
+              f"in {time.perf_counter() - t0:.1f} s: "
+              + ", ".join(f"{n} {v:,} B" for n, v in sizes.items()))
+
+        def dataset(workers):
+            return FaceByRandOccMask(
+                root_dir=root, batch_size=B_TRAIN, use_norm=True,
+                use_ori=False, occluder_root=occl, num_workers=workers,
+                seed=seed, raw_uint8=True)
+
+        one, _, _ = loader_batches(dataset(1), False, batches=1)
+        from msml_torch.core.config import lr_step_factor
+        from msml_torch.data.synthetic import synthetic_batch
+        from msml_torch.train.train_step import (init_train_state,
+                                                 make_train_step)
+
+        cfg = arc18_config()
+        state = init_train_state(build_model(seed, head=True), cfg, "cuda",
+                                 seed)
+        step = make_train_step(cfg)
+        host = synthetic_batch(B_TRAIN, num_classes=cfg.num_classes,
+                               seed=seed, uint8=True)
+        batch = {k: torch.as_tensor(host[k], device="cuda")
+                 for k in ("img", "label", "msk")}
+        lr = lr_step_factor(cfg, 0)
+        rates = {}
+        for label, workers, procs in (("processes", nw, True),
+                                      ("processes", 32, True),
+                                      ("threads", nw, False)):
+            if (label, workers) in rates:
+                continue
+            ds = dataset(workers)
+            try:
+                first, start_s, rate = loader_batches(ds, procs)
+                if procs:
+                    alone, beside, rate_beside, niced, rate_niced = \
+                        step_beside_loader(lambda: step(state, batch, lr),
+                                           ds)
+            finally:
+                ds.close()
+            if not same_batches(first, one):
+                fail(f"loader: the first two batches of {workers} {label} "
+                     "differ from one worker's")
+            rates[(label, workers)] = rate
+            print(f"[9 data] loader alone, {workers} {label}, B={B_TRAIN}: "
+                  f"{rate:.1f} img/s over 10 batches after the first; first "
+                  f"batch after {start_s:.2f} s"
+                  + (f" (~{start_s - B_TRAIN / rate:.2f} s of it starting "
+                     "the spawn pool)" if procs else "")
+                  + "; first two batches byte-equal to one worker's")
+            if procs:
+                print(f"[9 data] {smi}: the train step (bf16, B={B_TRAIN}, "
+                      f"one batch on the card) {alone:.2f} ms alone, "
+                      f"{beside:.2f} ms while these {workers} processes make "
+                      f"batches beside it as fast as they can, at "
+                      f"{rate_beside:.1f} img/s; {niced:.2f} ms with the "
+                      f"workers at nice 10, at {rate_niced:.1f} img/s "
+                      "(host clock, 20 steps each)")
+        del state, batch
+        msk = np.concatenate([b["msk"] for b in one])
+        labels = np.concatenate([b["label"] for b in one])
+        if not (set(np.unique(msk)) <= {0, 1} and (msk == 0).any()
+                and ((labels >= 0) & (labels < REC_IDS)).all()):
+            fail(f"loader: masks {np.unique(msk)}, labels {labels.min()}.."
+                 f"{labels.max()}")
+        print(f"[9 data] masks in {{0, 1}}, {np.mean(msk == 0):.1%} of "
+              f"pixels occluded; labels {labels.min()}..{labels.max()} of "
+              f"{REC_IDS} ids")
+
+        out = os.path.join(tmp, "out")
+
+        def rec_cfg():
+            return Config.from_dict(dict(ARC18_MSML, rec=root,
+                                         occluder_root=occl, out_folder=out))
+
+        argv = ["--steps", str(steps), "--ckpt-every", "10", "--log-every",
+                "5", "--seed", str(seed), "--device", "cuda",
+                "--tensorboard"]
+        reset_launches()
+        t0 = time.perf_counter()
+        state = main(parse_args(argv), rec_cfg())
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+        output = os.path.join(out, "arc18_msml_1")
+        with open(os.path.join(output, "training.log")) as f:
+            log = f.read()
+        losses = [float(v) for v in re.findall(r" Loss (\S+) ", log)]
+        speeds = speed_lines(log)
+        on_loop = {int(st): float(v) for st, v in re.findall(
+            r"checkpoint (?:at|saved at) step (\d+)(?: \(epoch \d+\))? "
+            r"\((\S+) s on the loop\)", log)}
+        written = {int(st): float(v) for st, v in re.findall(
+            r"checkpoint (\d+) written in the background in (\S+) s", log)}
+        per_epoch = REC_IDS * (REC_VIEWS - 2) // B_TRAIN
+        saved = sorted({s for s in range(10, steps + 1, 10)}
+                       | set(range(per_epoch, steps + 1, per_epoch)))
+        if state.step != steps or launches != per_step(steps):
+            fail(f"cli rec: step {state.step}, launches {launches}, "
+                 f"expected {steps} and {per_step(steps)}")
+        if not speeds or not losses or not all(map(math.isfinite, losses)):
+            fail(f"cli rec: Speed lines {speeds}, logged losses {losses}")
+        if all_steps(output) != saved[-3:] or sorted(written) != saved:
+            fail(f"cli rec: checkpoints {all_steps(output)}, written in the "
+                 f"background {sorted(written)}, expected {saved}")
+        for st in all_steps(output):
+            ck = torch.load(checkpoint_path(output, st), map_location="cpu",
+                            weights_only=True)
+            if ck["step"] != st or sorted(ck) != [
+                    "generator", "model", "optimizer", "step"]:
+                fail(f"cli rec: checkpoint {st} holds step {ck['step']}")
+        final = {k: v.cpu() for k, v in state.model.state_dict().items()}
+        if any(not torch.equal(ck["model"][k], v) for k, v in final.items()):
+            fail(f"cli rec: checkpoint {steps} differs from the final state")
+        tb = os.path.join(output, "tb")
+        events = [n for n in (os.listdir(tb) if os.path.isdir(tb) else [])
+                  if n.startswith("events.out.tfevents")]
+        print(f"[9 data] {smi}: cli.train on the rec (dataset webface, "
+              f"arc18_msml bf16, B={B_TRAIN}, 10572 classes, cfg.nw 32 "
+              f"spawned workers), {steps} steps ({per_epoch} a epoch) in "
+              f"{seconds:.1f} s host clock (model build, pool start and "
+              f"checkpoints included); logged losses "
+              f"{[round(v, 4) for v in losses]}; launches {launches} = "
+              f"per_step({steps}), as on synthetic data")
+        print(f"[9 data] {smi}: Speed (samples/s) on the rec by window end "
+              + ", ".join(
+                  f"{st}: {v:.2f}" + "".join(
+                      f" (save at {c})" for c in saved if st - 5 <= c < st)
+                  + "".join(" (epoch boundary)" for m in range(
+                      per_epoch, steps, per_epoch) if st - 5 <= m < st)
+                  for st, v in sorted(speeds.items()))
+              + f"; phase 6's synthetic Speed {synthetic_speeds}")
+        print(f"[9 data] checkpoints {saved} (kept {all_steps(output)}, "
+              "each loads; the last equals the final state): save on the "
+              "loop's thread " + ", ".join(
+                  f"{st}: {v:.3f} s" for st, v in sorted(on_loop.items()))
+              + "; the background write " + ", ".join(
+                  f"{st}: {v:.3f} s" for st, v in sorted(written.items()))
+              + "; tensorboard: " + (
+                  f"{len(events)} events file in {tb}" if events
+                  else "no events file (torch.utils.tensorboard "
+                  "unavailable, the writer warned)"))
+        del state
+        state = main(parse_args(argv[2:-1] + ["--steps", str(resume_to),
+                                              "--resume"]), rec_cfg())
+        with open(os.path.join(output, "training.log")) as f:
+            resumed = f"backbone resume successfully! step={steps}" in f.read()
+        if not resumed or state.step != resume_to:
+            fail(f"cli rec --resume: resumed {resumed}, step {state.step}")
+        print(f"[9 data] --resume from the async checkpoint {steps} ran to "
+              f"step {state.step}; checkpoints {all_steps(output)}")
+        del state
+
+        def custom(name, argv, **over):
+            """cli.train on the rec as `dataset: custom` with `nw` workers;
+            -> its training.log."""
+            cfg = Config.from_dict(dict(
+                ARC18_MSML, dataset="custom", num_classes=10572, nw=nw,
+                rec=root, occluder_root=occl,
+                out_folder=os.path.join(tmp, name), **over))
+            state = main(parse_args(argv + ["--seed", str(seed), "--device",
+                                            "cuda"]), cfg)
+            if state.step != int(argv[1]):
+                fail(f"cli {name}: step {state.step}, not {argv[1]}")
+            with open(os.path.join(tmp, name, "arc18_msml_1",
+                                   "training.log")) as f:
+                return f.read()
+
+        fewer = speed_lines(custom("nw", ["--steps", "20", "--log-every",
+                                          "5"]))
+        print(f"[9 data] {smi}: the same rec as dataset custom with nw = {nw}"
+              " worker processes (one a core), 20 steps: Speed (samples/s) "
+              "by window end " + ", ".join(
+                  f"{st}: {v:.2f}" for st, v in sorted(fewer.items()))
+              + " (save at 15 and the epoch boundary in the last); webface's "
+              "32 workers above")
+        switch = sys.getswitchinterval()
+        sys.setswitchinterval(5e-4)
+        try:
+            short = speed_lines(custom("switch", ["--steps", "20",
+                                                  "--log-every", "5"]))
+        finally:
+            sys.setswitchinterval(switch)
+        print(f"[9 data] {smi}: the same with the interpreter's switch "
+              f"interval at 0.5 ms (default {switch * 1e3:g} ms): Speed "
+              "(samples/s) by window end " + ", ".join(
+                  f"{st}: {v:.2f}" for st, v in sorted(short.items())))
+        acc = re.findall(r"\[synth_val\]\[4\]Accuracy-Flip: (\S+)\+-(\S+)",
+                         custom("custom", ["--steps", "4", "--ver-every",
+                                           "4"], val_targets=["synth_val"]))
+        if len(acc) != 1 or not 0 <= float(acc[0][0]) <= 1:
+            fail(f"cli custom: accuracy {acc}")
+        print(f"[9 data] dataset custom ({nw} workers), 4 steps, "
+              f"verification on synth_val.bin ({REC_PAIRS} JPEG pairs "
+              f"decoded by cv2): Accuracy-Flip {acc[0][0]}+-{acc[0][1]}")
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -1501,8 +1869,9 @@ def main(argv=None):
     del model
     train_launches, train_img_s = phase_train(args.seed)
     phase_train_cpu_parity(args.seed)
-    (cli_launches, cli_img_s, cli_sweep_launches, serve_launches,
+    (cli_launches, cli_speeds, cli_sweep_launches, serve_launches,
      serve_errs) = phase_cli(args.seed, smi)
+    rec_launches = phase_data(args.seed, smi, cli_speeds)
 
     # this slice's path is the training CLI: its launches; the uint8 input
     # stage's times at B = 128, and the eval and train-step paths' launches
@@ -1519,9 +1888,11 @@ def main(argv=None):
         e["launches_train_step"] = train_launches[e["name"]]
         e["launches_cli_sweep"] = cli_sweep_launches[e["name"]]
         e["launches_serve"] = serve_launches[e["name"]]
+        e["launches_cli_rec"] = rec_launches[e["name"]]
         e["max_abs_err"] = max(e["max_abs_err"],
                                serve_errs.get(e["name"], 0.0))
-    print(f"[7 summary] {smi}: CLI {cli_img_s:.1f} img/s (last Speed line); "
+    print(f"[7 summary] {smi}: CLI {cli_speeds[-1]:.1f} img/s (last Speed "
+          "line); "
           f"train step {train_img_s:.1f} img/s bf16 at B={B_TRAIN}; eval "
           f"forward {eval_img_s:.1f} img/s at B={B}; "
           + "; ".join(f"{e['name']} {e['ms']:.4f} ms (bound "

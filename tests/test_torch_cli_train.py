@@ -5,7 +5,10 @@ four FMCnn [3, 2, sigmoid, mul], AMArcFace s = 64, m = 0.48, device_light)
 in float32 with 16 classes, batch 2, synthetic data, `--device cpu`: the
 routed convs and the PReLU sites run their plain versions. The run
 writes config.yaml, logs, checkpoints, resumes, verifies and stops cleanly
-on SIGTERM; what it refuses, it refuses loudly.
+on SIGTERM; what it refuses, it refuses loudly. On a tiny RecordIO rec
+(the JAX package's `write_dataset`, 4 ids x 4 views, seed 0, with its
+procedural occluders) the step receives JAX's first batch byte for byte,
+and worker processes change no loss.
 """
 
 import os
@@ -160,18 +163,115 @@ def test_cuda_without_cuda_raises(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("argv,over", [
     (["--strategy", "fsdp"], {}), (["--scan-steps", "2"], {}),
-    (["--multihost"], {}), (["--tensorboard"], {}),
+    (["--multihost"], {}),
     ([], {"sample_rate": 0.5})], ids=["strategy", "scan_steps", "multihost",
-                                      "tensorboard", "partial_fc"])
+                                      "partial_fc"])
 def test_not_ported_options_are_refused(tmp_path, argv, over):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         run(tmp_path, "--steps", "1", *argv, **over)
 
 
-def test_recordio_dataset_is_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="face_dataset"):
-        run(tmp_path, "--steps", "1", dataset="webface",
-            rec=str(tmp_path / "casia"))
+@pytest.fixture(scope="module")
+def tiny_rec(tmp_path_factory):
+    """A 16-image rec (4 ids x 4 views, 8 train images) and occluders,
+    written by the JAX package's tools."""
+    from msml_tpu.tools.make_occluders import main as make_occluders
+    from msml_tpu.tools.make_synthetic_rec import write_dataset
+
+    base = tmp_path_factory.mktemp("rec")
+    write_dataset(str(base / "rec"), ids=4, per_id=4, val_pairs=0,
+                  seed=0, log_every=0)
+    make_occluders(str(base / "occ"), num=2, seed=0)
+    return str(base / "rec"), str(base / "occ")
+
+
+def rec_config(tiny_rec, nw=0):
+    rec, occ = tiny_rec
+    return dict(dataset="custom", rec=rec, occluder_root=occ, nw=nw,
+                num_classes=16)
+
+
+def speed_losses(log):
+    return re.findall(r"Speed \S+ samples/sec .* Loss (\S+) Epoch", log)
+
+
+def test_rec_first_batch_equals_jax(tmp_path, tiny_rec, monkeypatch):
+    """What the step receives first is JAX's `build_dataset(cfg, args, 1)`
+    first batch, byte for byte (uint8 images, device_light)."""
+    from msml_tpu.cli import train as jax_cli
+    from msml_tpu.core.config import Config as JaxConfig
+    from msml_tpu.core.config import config_init as jax_config_init
+    from msml_torch.train import train_step
+
+    seen = []
+    real = train_step.make_train_step
+
+    def spy(cfg):
+        step = real(cfg)
+
+        def wrapped(state, batch, lr_factor):
+            seen.append({k: v.numpy().copy() for k, v in batch.items()})
+            return step(state, batch, lr_factor)
+        return wrapped
+
+    monkeypatch.setattr(train_step, "make_train_step", spy)
+    over = rec_config(tiny_rec)
+    state, _, log = run(tmp_path / "port", "--steps", "1", **over)
+    assert state.step == 1 and len(seen) == 1
+    assert "data: FaceByRandOccMask, 8 samples" in log
+
+    jcfg = jax_config_init(JaxConfig.from_dict(dict(
+        SMALL, out_folder=str(tmp_path / "jax"), **over)))
+    jargs = jax_cli.parse_args(["--seed", "0", "--steps", "1"])
+    jset = jax_cli.build_dataset(jcfg, jargs, 1)
+    want = next(jset.epoch(0))
+    assert sorted(seen[0]) == sorted(want) == ["img", "label", "msk"]
+    for k in want:
+        assert seen[0][k].dtype == want[k].dtype, k
+        assert seen[0][k].tobytes() == want[k].tobytes(), k
+    assert want["img"].dtype == np.uint8 and want["img"].shape == (
+        2, 112, 112, 3)
+
+
+def test_rec_worker_processes_log_identical_losses(tmp_path, tiny_rec):
+    """nw 0 (a thread pool) and nw 2 (two spawned processes) train on the
+    same batches: the logged losses are identical."""
+    logs = {}
+    for nw in (0, 2):
+        state, _, logs[nw] = run(tmp_path / str(nw), "--steps", "2",
+                                 "--log-every", "1",
+                                 **rec_config(tiny_rec, nw))
+        assert state.step == 2
+    assert "no worker processes" in logs[0]
+    assert "2 worker processes" in logs[2]
+    assert len(speed_losses(logs[0])) == 1
+    assert speed_losses(logs[2]) == speed_losses(logs[0])
+    assert all(np.isfinite(float(v)) for v in speed_losses(logs[0]))
+
+
+def test_rec_occ_off(tmp_path, tiny_rec):
+    state, _, log = run(tmp_path, "--steps", "2", "--log-every", "1",
+                        "--occ", "0", **rec_config(tiny_rec))
+    assert state.step == 2 and len(speed_losses(log)) == 1
+    assert "training finished at step 2" in log
+
+
+def test_tensorboard_writes_events(tmp_path, tiny_rec):
+    """--tensorboard writes the JAX CLI's tags to <output>/tb."""
+    from tensorboard.backend.event_processing.event_accumulator import \
+        EventAccumulator
+
+    state, folder, _ = run(tmp_path, "--steps", "2", "--log-every", "1",
+                           "--tensorboard", **rec_config(tiny_rec))
+    assert state.step == 2
+    events = [n for n in os.listdir(os.path.join(folder, "tb"))
+              if n.startswith("events.out.tfevents")]
+    assert len(events) == 1
+    acc = EventAccumulator(os.path.join(folder, "tb"))
+    acc.Reload()
+    assert sorted(acc.Tags()["scalars"]) == [
+        "img_per_sec_per_chip", "loss", "samples_per_sec", "time_for_end"]
+    assert [e.step for e in acc.Scalars("loss")] == [2]
 
 
 def test_sigterm_saves_and_exits_cleanly(tmp_path):

@@ -18,6 +18,11 @@ PORT_FILES = sorted(
     if "_build" not in p.split(os.sep)) + [os.path.join(REPO, "chip_smoke.py")]
 # absent on the card's machine, or kept out of import time
 LAZY = ("triton", "yaml", "cv2", "PIL")
+# the RecordIO dataset's modules import Pillow with themselves: only the
+# CLI's RecordIO branch imports them
+TOP_LEVEL_OK = {os.path.join("msml_torch", "data", "rand_occ.py"): ("PIL",),
+                os.path.join("msml_torch", "data", "face_dataset.py"):
+                    ("PIL",)}
 
 
 def _imports(tree):
@@ -47,7 +52,9 @@ def test_port_imports_no_jax(path):
         root = name.split(".")[0]
         assert root not in ("jax", "jaxlib", "flax", "msml_tpu",
                             "sklearn"), (path, name)
-        assert not (top and root in LAZY), (path, name)
+        allowed = TOP_LEVEL_OK.get(os.path.relpath(path, REPO), ())
+        assert not (top and root in LAZY and root not in allowed), (
+            path, name)
 
 
 @pytest.fixture
