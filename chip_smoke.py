@@ -52,10 +52,13 @@ Phases:
      B = 128) for 20 steps with a checkpoint every 10 into a temporary
      folder: every logged loss finite, Speed lines logged, the checkpoints
      written, each kernel launched as often as the steps and sites say;
-     then a `--resume` run that continues from step 20 to 24; then the
-     sweep on the folder it wrote: `load_weight_folder` gives the trained
-     model's eval features, and `msml_torch.cli.test --device-sweep` runs
-     on it over a `.bin` of 40 synthetic PPM pairs;
+     then the same for 30 steps, three runs with blocking saves
+     (`--sync-ckpt`) and three with asynchronous ones, alternating: their
+     Speed by window, each save's seconds on the loop, and the steps'
+     seconds; then a `--resume` run that continues from step 20 to 24; then
+     the sweep on the folder it wrote: `load_weight_folder` gives the
+     trained model's eval features, and `msml_torch.cli.test
+     --device-sweep` runs on it over a `.bin` of 40 synthetic PPM pairs;
   7. a summary line, the JSON line of the kernels (with their times, bounds
      and launch counts), then the final JSON line;
   8. serve (run within phase 6, on the folder the training CLI wrote, so
@@ -83,21 +86,17 @@ Phases:
      device_light): img/s over 10 batches after the first with the spawn
      pool and with threads, the pool's start, the first two batches of
      every worker count byte-equal to one worker's, masks in {0, 1} with
-     some 0s, labels in range; and the bare train step's ms alone beside
-     its ms while each pool makes batches as fast as it can (its workers
-     at the main process's priority, then at nice 10). Then `cli.train` on
-     the rec (`dataset: webface`, the flagship config, bf16, B = 128,
-     10572 classes) for 30 steps with a checkpoint every 10, asynchronous
-     saves and `--tensorboard`: every loss finite, each kernel launched as
+     some 0s, labels in range. Then `cli.train` on the rec (`dataset:
+     webface`, the flagship config, bf16, B = 128, 10572 classes) for 30
+     steps with a checkpoint every 10, asynchronous saves and
+     `--tensorboard`: every loss finite, each kernel launched as
      per_step(30) says (as on synthetic data), the checkpoints that the
      cadence and keep-3 leave, each loading, the last equal to the final
-     state; its Speed by window (saves and the epoch boundary marked)
-     beside phase 6's synthetic Speed, and each save's host time on the
-     loop beside its background write. Then a `--resume` to step 34; the
-     rec as `dataset: custom` with nw = min(32, cores) for 20 steps, at
-     the interpreter's default switch interval and at 0.5 ms; and a 4-step
-     `custom` run whose verification decodes the 200 JPEG pairs through
-     cv2.
+     state; the pool's start, its Speed by window (saves and the epoch
+     boundary marked) beside phase 6's synthetic Speed, and each save's
+     host time on the loop beside its background write. Then a `--resume`
+     to step 34, and a 4-step `dataset: custom` run whose verification
+     decodes the 200 JPEG pairs through cv2.
 
 Exits non-zero, without the final line, when CUDA is missing or any check
 fails. Needs no network or PyYAML; phase 9 needs Pillow and OpenCV.
@@ -1068,6 +1067,7 @@ def phase_cli(seed: int, smi: str, steps: int = 20, resume_to: int = 24):
               f"included); Speed lines (samples/s) {speeds}; logged losses "
               f"{[round(v, 4) for v in losses]}; checkpoints "
               f"{all_steps(output)}; launches {launches}")
+        save_ab(seed, smi, cfg)
         state = main(parse_args(argv[2:] + ["--steps", str(resume_to),
                                             "--resume"]), cfg(out))
         with open(os.path.join(output, "training.log")) as f:
@@ -1080,6 +1080,42 @@ def phase_cli(seed: int, smi: str, steps: int = 20, resume_to: int = 24):
         del state
         serve_launches, serve_errs = cli_serve(seed, output, out, smi)
     return launches, speeds, sweep_launches, serve_launches, serve_errs
+
+
+def save_ab(seed: int, smi: str, cfg, steps: int = 30):
+    """Phase 6's synthetic CLI run with blocking (`--sync-ckpt`) and
+    asynchronous saves in the order S A A S S A: each run's Speed by window
+    end (the saves at 10 and 20 fall in the windows that end at 15 and 25),
+    its saves' seconds on the loop, and its steps 6..30 in seconds (the sum
+    of its windows)."""
+    from msml_torch.cli.train import main, parse_args
+
+    loop = {True: [], False: []}
+    for sync in (True, False, False, True, True, False):
+        with tempfile.TemporaryDirectory() as out:
+            main(parse_args(["--steps", str(steps), "--ckpt-every", "10",
+                             "--log-every", "5", "--seed", str(seed),
+                             "--device", "cuda"]
+                            + (["--sync-ckpt"] if sync else [])), cfg(out))
+            with open(os.path.join(out, "arc18_msml_1",
+                                   "training.log")) as f:
+                log = f.read()
+        speeds = speed_lines(log)
+        if len(speeds) != steps // 5 - 1:
+            fail(f"cli {'sync' if sync else 'async'}: Speed lines {speeds}")
+        seconds = sum(5 * B_TRAIN / v for v in speeds.values())
+        loop[sync].append(seconds)
+        print(f"[6 cli] {smi}: {'blocking' if sync else 'async'} saves, "
+              f"{steps} steps: Speed (samples/s) by window end "
+              + ", ".join(f"{st}: {v:.2f}" for st, v in sorted(
+                  speeds.items()))
+              + "; save on the loop " + ", ".join(
+                  f"{st}: {v:.3f} s" for st, v in sorted(
+                      save_seconds(log).items()))
+              + f"; steps 6..{steps} in {seconds:.3f} s")
+    print(f"[6 cli] {smi}: steps 6..{steps} with blocking saves "
+          f"{[round(v, 3) for v in loop[True]]} s, with async saves "
+          f"{[round(v, 3) for v in loop[False]]} s")
 
 
 def cli_sweep(seed: int, state, folder: str, scratch: str, pairs: int = 40):
@@ -1174,60 +1210,17 @@ def loader_batches(ds, use_processes: bool, batches: int = 10):
     return first, t1 - t0, batches * ds.batch_size / (t2 - t1)
 
 
-def step_beside_loader(run_step, ds, steps: int = 20):
-    """-> (ms a train step alone, then while a thread beside it draws
-    `ds`'s batches through its spawn pool and copies them to the card as
-    fast as they come: ms a step and the loader's img/s, first with the
-    workers at the main process's priority, then at nice 10). Host clock,
-    the card synchronized at both ends, after 5 warm steps."""
-    import threading
-
-    from msml_torch.data.pipeline import device_prefetch
-
-    def timed() -> float:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            run_step()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) / steps * 1e3
-
-    for _ in range(5):
-        run_step()
-    alone = timed()
-    stop, made = threading.Event(), [0]
-
-    def load():
-        epoch = 1
-        while not stop.is_set():
-            for _ in device_prefetch(ds.epoch(epoch, use_processes=True),
-                                     "cuda"):
-                made[0] += 1
-                if stop.is_set():
-                    break
-            epoch += 1
-
-    loader = threading.Thread(target=load, daemon=True)
-    loader.start()
-    while made[0] < 2:  # the loader at full rate before the clock starts
-        time.sleep(0.01)
-    out = [alone]
-    for nice in (0, 10):
-        for worker in ds._pool._pool:
-            os.setpriority(os.PRIO_PROCESS, worker.pid, nice)
-        n0, t0 = made[0], time.perf_counter()
-        out.append(timed())
-        out.append((made[0] - n0) * ds.batch_size
-                   / (time.perf_counter() - t0))
-    stop.set()
-    loader.join(timeout=120)
-    return out
-
-
 def same_batches(a, b) -> bool:
     return len(a) == len(b) and all(
         sorted(x) == sorted(y) and all(x[k].tobytes() == y[k].tobytes()
                                        for k in x) for x, y in zip(a, b))
+
+
+def save_seconds(log: str) -> dict:
+    """The training log's saves: {step: seconds on the loop's thread}."""
+    return {int(st): float(v) for st, v in re.findall(
+        r"checkpoint (?:at|saved at) step (\d+)(?: \(epoch \d+\))? "
+        r"\((\S+) s on the loop\)", log)}
 
 
 def speed_lines(log: str) -> dict:
@@ -1281,54 +1274,21 @@ def phase_data(seed: int, smi: str, synthetic_speeds, steps: int = 30,
                 seed=seed, raw_uint8=True)
 
         one, _, _ = loader_batches(dataset(1), False, batches=1)
-        from msml_torch.core.config import lr_step_factor
-        from msml_torch.data.synthetic import synthetic_batch
-        from msml_torch.train.train_step import (init_train_state,
-                                                 make_train_step)
-
-        cfg = arc18_config()
-        state = init_train_state(build_model(seed, head=True), cfg, "cuda",
-                                 seed)
-        step = make_train_step(cfg)
-        host = synthetic_batch(B_TRAIN, num_classes=cfg.num_classes,
-                               seed=seed, uint8=True)
-        batch = {k: torch.as_tensor(host[k], device="cuda")
-                 for k in ("img", "label", "msk")}
-        lr = lr_step_factor(cfg, 0)
-        rates = {}
-        for label, workers, procs in (("processes", nw, True),
-                                      ("processes", 32, True),
-                                      ("threads", nw, False)):
-            if (label, workers) in rates:
-                continue
-            ds = dataset(workers)
+        for label, procs in (("processes", True), ("threads", False)):
+            ds = dataset(nw)
             try:
                 first, start_s, rate = loader_batches(ds, procs)
-                if procs:
-                    alone, beside, rate_beside, niced, rate_niced = \
-                        step_beside_loader(lambda: step(state, batch, lr),
-                                           ds)
             finally:
                 ds.close()
             if not same_batches(first, one):
-                fail(f"loader: the first two batches of {workers} {label} "
+                fail(f"loader: the first two batches of {nw} {label} "
                      "differ from one worker's")
-            rates[(label, workers)] = rate
-            print(f"[9 data] loader alone, {workers} {label}, B={B_TRAIN}: "
+            print(f"[9 data] loader alone, {nw} {label}, B={B_TRAIN}: "
                   f"{rate:.1f} img/s over 10 batches after the first; first "
                   f"batch after {start_s:.2f} s"
                   + (f" (~{start_s - B_TRAIN / rate:.2f} s of it starting "
                      "the spawn pool)" if procs else "")
                   + "; first two batches byte-equal to one worker's")
-            if procs:
-                print(f"[9 data] {smi}: the train step (bf16, B={B_TRAIN}, "
-                      f"one batch on the card) {alone:.2f} ms alone, "
-                      f"{beside:.2f} ms while these {workers} processes make "
-                      f"batches beside it as fast as they can, at "
-                      f"{rate_beside:.1f} img/s; {niced:.2f} ms with the "
-                      f"workers at nice 10, at {rate_niced:.1f} img/s "
-                      "(host clock, 20 steps each)")
-        del state, batch
         msk = np.concatenate([b["msk"] for b in one])
         labels = np.concatenate([b["label"] for b in one])
         if not (set(np.unique(msk)) <= {0, 1} and (msk == 0).any()
@@ -1359,9 +1319,8 @@ def phase_data(seed: int, smi: str, synthetic_speeds, steps: int = 30,
             log = f.read()
         losses = [float(v) for v in re.findall(r" Loss (\S+) ", log)]
         speeds = speed_lines(log)
-        on_loop = {int(st): float(v) for st, v in re.findall(
-            r"checkpoint (?:at|saved at) step (\d+)(?: \(epoch \d+\))? "
-            r"\((\S+) s on the loop\)", log)}
+        on_loop = save_seconds(log)
+        pool_s = re.findall(r"worker processes \(started in (\S+) s\)", log)
         written = {int(st): float(v) for st, v in re.findall(
             r"checkpoint (\d+) written in the background in (\S+) s", log)}
         per_epoch = REC_IDS * (REC_VIEWS - 2) // B_TRAIN
@@ -1370,8 +1329,10 @@ def phase_data(seed: int, smi: str, synthetic_speeds, steps: int = 30,
         if state.step != steps or launches != per_step(steps):
             fail(f"cli rec: step {state.step}, launches {launches}, "
                  f"expected {steps} and {per_step(steps)}")
-        if not speeds or not losses or not all(map(math.isfinite, losses)):
-            fail(f"cli rec: Speed lines {speeds}, logged losses {losses}")
+        if not (speeds and losses and pool_s
+                and all(map(math.isfinite, losses))):
+            fail(f"cli rec: Speed lines {speeds}, logged losses {losses}, "
+                 f"pool start {pool_s}")
         if all_steps(output) != saved[-3:] or sorted(written) != saved:
             fail(f"cli rec: checkpoints {all_steps(output)}, written in the "
                  f"background {sorted(written)}, expected {saved}")
@@ -1389,7 +1350,8 @@ def phase_data(seed: int, smi: str, synthetic_speeds, steps: int = 30,
                   if n.startswith("events.out.tfevents")]
         print(f"[9 data] {smi}: cli.train on the rec (dataset webface, "
               f"arc18_msml bf16, B={B_TRAIN}, 10572 classes, cfg.nw 32 "
-              f"spawned workers), {steps} steps ({per_epoch} a epoch) in "
+              f"spawned workers, started in {pool_s[0]} s), {steps} steps "
+              f"({per_epoch} an epoch) in "
               f"{seconds:.1f} s host clock (model build, pool start and "
               f"checkpoints included); logged losses "
               f"{[round(v, 4) for v in losses]}; launches {launches} = "
@@ -1423,43 +1385,22 @@ def phase_data(seed: int, smi: str, synthetic_speeds, steps: int = 30,
               f"step {state.step}; checkpoints {all_steps(output)}")
         del state
 
-        def custom(name, argv, **over):
-            """cli.train on the rec as `dataset: custom` with `nw` workers;
-            -> its training.log."""
-            cfg = Config.from_dict(dict(
-                ARC18_MSML, dataset="custom", num_classes=10572, nw=nw,
-                rec=root, occluder_root=occl,
-                out_folder=os.path.join(tmp, name), **over))
-            state = main(parse_args(argv + ["--seed", str(seed), "--device",
-                                            "cuda"]), cfg)
-            if state.step != int(argv[1]):
-                fail(f"cli {name}: step {state.step}, not {argv[1]}")
-            with open(os.path.join(tmp, name, "arc18_msml_1",
-                                   "training.log")) as f:
-                return f.read()
-
-        fewer = speed_lines(custom("nw", ["--steps", "20", "--log-every",
-                                          "5"]))
-        print(f"[9 data] {smi}: the same rec as dataset custom with nw = {nw}"
-              " worker processes (one a core), 20 steps: Speed (samples/s) "
-              "by window end " + ", ".join(
-                  f"{st}: {v:.2f}" for st, v in sorted(fewer.items()))
-              + " (save at 15 and the epoch boundary in the last); webface's "
-              "32 workers above")
-        switch = sys.getswitchinterval()
-        sys.setswitchinterval(5e-4)
-        try:
-            short = speed_lines(custom("switch", ["--steps", "20",
-                                                  "--log-every", "5"]))
-        finally:
-            sys.setswitchinterval(switch)
-        print(f"[9 data] {smi}: the same with the interpreter's switch "
-              f"interval at 0.5 ms (default {switch * 1e3:g} ms): Speed "
-              "(samples/s) by window end " + ", ".join(
-                  f"{st}: {v:.2f}" for st, v in sorted(short.items())))
-        acc = re.findall(r"\[synth_val\]\[4\]Accuracy-Flip: (\S+)\+-(\S+)",
-                         custom("custom", ["--steps", "4", "--ver-every",
-                                           "4"], val_targets=["synth_val"]))
+        # the rec as `dataset: custom`, whose verification decodes the
+        # synth_val pairs through cv2
+        state = main(parse_args(["--steps", "4", "--ver-every", "4",
+                                 "--seed", str(seed), "--device", "cuda"]),
+                     Config.from_dict(dict(
+                         ARC18_MSML, dataset="custom", num_classes=10572,
+                         nw=nw, rec=root, occluder_root=occl,
+                         val_targets=["synth_val"],
+                         out_folder=os.path.join(tmp, "custom"))))
+        if state.step != 4:
+            fail(f"cli custom: step {state.step}, not 4")
+        del state
+        with open(os.path.join(tmp, "custom", "arc18_msml_1",
+                               "training.log")) as f:
+            acc = re.findall(r"\[synth_val\]\[4\]Accuracy-Flip: "
+                             r"(\S+)\+-(\S+)", f.read())
         if len(acc) != 1 or not 0 <= float(acc[0][0]) <= 1:
             fail(f"cli custom: accuracy {acc}")
         print(f"[9 data] dataset custom ({nw} workers), 4 steps, "

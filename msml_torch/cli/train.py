@@ -39,6 +39,7 @@ import importlib
 import os
 import shutil
 import signal
+import time
 
 import torch
 
@@ -165,8 +166,7 @@ def _main_inner(args, cfg, preempted):
             logger.info("resume fail, backbone init successfully!")
     # async saves overlap the write with training (--sync-ckpt: blocking)
     ckpt_writer = ckpt.CheckpointWriter(cfg.output,
-                                        async_save=not args.sync_ckpt,
-                                        logger=logger)
+                                        async_save=not args.sync_ckpt)
 
     trainset = build_dataset(cfg, args)
     steps_per_epoch = len(trainset) // cfg.batch_size
@@ -177,10 +177,14 @@ def _main_inner(args, cfg, preempted):
     # spawned worker processes for a RecordIO dataset (train.py:295-300)
     use_procs = cfg.get("nw", 0) > 0 and \
         not isinstance(trainset, SyntheticDataset)
+    workers = "no worker processes"
+    if use_procs:  # started here, not on device_prefetch's thread
+        t0 = time.perf_counter()
+        trainset._get_pool()
+        workers = "%d worker processes (started in %.2f s)" % (
+            trainset.num_workers, time.perf_counter() - t0)
     logger.info("data: %s, %d samples, %s" % (
-        type(trainset).__name__, len(trainset),
-        "%d worker processes" % trainset.num_workers if use_procs
-        else "no worker processes"))
+        type(trainset).__name__, len(trainset), workers))
 
     loss_meter = AverageMeter()
     writer = None

@@ -102,11 +102,9 @@ class CheckpointWriter:
     `save_seconds` is the loop thread's time in the last `save`; each
     background write logs its own time."""
 
-    def __init__(self, output_dir: str, async_save: bool = True,
-                 logger: Optional[logging.Logger] = None):
+    def __init__(self, output_dir: str, async_save: bool = True):
         self.output_dir = output_dir
         self.async_save = async_save
-        self.logger = logger or logging.getLogger(LOGGER)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[Exception] = None
         self._buffers: dict = {}
@@ -173,8 +171,9 @@ class CheckpointWriter:
         except Exception as e:  # raised again on the loop's thread
             self._error = e
             return
-        self.logger.info("checkpoint %d written in the background in %.3f "
-                         "s" % (step, time.perf_counter() - t0))
+        logging.getLogger(LOGGER).info(
+            "checkpoint %d written in the background in %.3f s"
+            % (step, time.perf_counter() - t0))
 
     def wait(self):
         if self._thread is not None:

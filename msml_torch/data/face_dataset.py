@@ -73,7 +73,10 @@ def _main_hidden():
     they need only this module, and a main script or `-m` module that
     imports torch at its top (the training CLI, chip_smoke.py) would make
     every worker import torch (on an H100's machine a pool of 32 workers
-    then took 312 s to start, 25 s without)."""
+    then took 312 s to start, 25 s without). It changes the process's
+    `__main__`, so start the pool on the main thread before other threads
+    run (the training CLI does). A worker that the pool starts again after
+    one died is started outside this and imports the main module again."""
     main = sys.modules["__main__"]
     spec, file = main.__spec__, main.__dict__.pop("__file__", None)
     main.__spec__ = None

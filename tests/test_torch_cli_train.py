@@ -249,6 +249,31 @@ def test_rec_worker_processes_log_identical_losses(tmp_path, tiny_rec):
     assert all(np.isfinite(float(v)) for v in speed_losses(logs[0]))
 
 
+def test_rec_pool_starts_on_the_main_thread(tmp_path, tiny_rec,
+                                            monkeypatch):
+    """The CLI starts the spawn pool itself, before `device_prefetch`'s
+    thread runs the epoch generator: hiding `__main__` while the workers
+    start then changes the process's state on its main thread only."""
+    import threading
+
+    from msml_torch.data.face_dataset import FaceByRandOccMask
+
+    calls = []
+    real = FaceByRandOccMask._get_pool
+
+    def spy(self):
+        calls.append((threading.current_thread() is threading.main_thread(),
+                      getattr(self, "_pool", None) is None))
+        return real(self)
+
+    monkeypatch.setattr(FaceByRandOccMask, "_get_pool", spy)
+    state, _, log = run(tmp_path, "--steps", "1", **rec_config(tiny_rec, 1))
+    assert state.step == 1
+    assert calls[0] == (True, True)  # created on the main thread
+    assert all(not created for _, created in calls[1:])
+    assert re.search(r"1 worker processes \(started in \S+ s\)", log)
+
+
 def test_rec_occ_off(tmp_path, tiny_rec):
     state, _, log = run(tmp_path, "--steps", "2", "--log-every", "1",
                         "--occ", "0", **rec_config(tiny_rec))
