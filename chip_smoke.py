@@ -60,7 +60,8 @@ Phases:
      trained model's eval features, and `msml_torch.cli.test
      --device-sweep` runs on it over a `.bin` of 40 synthetic PPM pairs;
   7. a summary line, the JSON line of the kernels (with their times, bounds
-     and launch counts), then the final JSON line;
+     and launch counts on each path, `launches_cli_host_sweep` from 10's
+     BB sweep), then the final JSON line;
   8. serve (run within phase 6, on the folder the training CLI wrote, so
      its lines come before 7's): `conv3x3_fwd` and `prelu_fwd` against
      their plain versions at the bucket batches 1, 2, 4, ..., 32 (bf16, the
@@ -96,7 +97,25 @@ Phases:
      boundary marked) beside phase 6's synthetic Speed, and each save's
      host time on the loop beside its background write. Then a `--resume`
      to step 34, and a 4-step `dataset: custom` run whose verification
-     decodes the 200 JPEG pairs through cv2.
+     decodes the 200 JPEG pairs through cv2;
+  10. weights and the host sweep (within phase 6, on the folder the
+     training CLI wrote, after 8): `tools.export_torch` writes its
+     backbone.pth and `tools.export_frb` its frb.npz; `cli.train` for 5
+     steps from each as `pretrained_backbone`, beside a fresh start:
+     before step 1 the overlaid tensors equal the folder's bit for bit on
+     the card and every other tensor a fresh init's, the log counts the
+     tensors, launches per_step(5), first-step losses printed. Then
+     `cli.test` without `--device-sweep` (PIL occlusion on the host, the
+     eval forward on the card at `--batch-size` 25) over 200 PPM pairs,
+     fill black, 1 repeat, protocols BB and NB: launches exactly 8
+     `conv3x3_fwd` and 42 `prelu_fwd` per forward, the wall seconds split
+     into forward, host PIL + numpy and metrics; over 20 pairs the card's
+     saved features and rows against the port's own sweep on the CPU in
+     float32 (`--weight` of the checkpoint with the config at fp16:
+     false): the folder's bf16 by feature cosine >= 0.99, the card in
+     float32 with TF32 off by cosine >= 0.9999 and each row's avg_acc
+     within one pair; and `--weight backbone.pth --no-occ` against the
+     first row of the folder's own sweep.
 
 Exits non-zero, without the final line, when CUDA is missing or any check
 fails. Needs no network or PyYAML; phase 9 needs Pillow and OpenCV.
@@ -1079,7 +1098,10 @@ def phase_cli(seed: int, smi: str, steps: int = 20, resume_to: int = 24):
         sweep_launches = cli_sweep(seed, state, output, out)
         del state
         serve_launches, serve_errs = cli_serve(seed, output, out, smi)
-    return launches, speeds, sweep_launches, serve_launches, serve_errs
+        pth = cli_weights(seed, output, out, smi)
+        host_launches = cli_host_sweep(seed, output, out, smi, pth)
+    return (launches, speeds, sweep_launches, serve_launches, serve_errs,
+            host_launches)
 
 
 def save_ab(seed: int, smi: str, cfg, steps: int = 30):
@@ -1161,6 +1183,308 @@ def cli_sweep(seed: int, state, folder: str, scratch: str, pairs: int = 40):
           + ", ".join(f"{r['lo']}%: {r['avg_acc']:.4f}" for r in rows)
           + f"; launches {launches}")
     return launches
+
+
+HOST_PAIRS = 200        # the host sweep's .bin on the card
+REF_PAIRS = 20          # the card-vs-CPU comparison (10 folds of 2 pairs)
+HOST_BATCH = 25         # cli.test's --batch-size default
+
+
+def record_first_step():
+    """Patch the training CLI's step so that its first call records the
+    model's weights before it runs, and its total_loss; -> (the record,
+    a function that undoes the patch)."""
+    from msml_torch.train import train_step
+
+    seen = {}
+    make = train_step.make_train_step
+
+    def recording(cfg):
+        step = make(cfg)
+
+        def wrapped(state, *args, **kwargs):
+            first = not seen
+            if first:
+                seen["weights"] = {k: v.clone() for k, v in
+                                   state.model.state_dict().items()}
+            metrics = step(state, *args, **kwargs)
+            if first:
+                seen["loss"] = metrics["total_loss"].item()
+            return metrics
+        return wrapped
+
+    train_step.make_train_step = recording
+    return seen, lambda: setattr(train_step, "make_train_step", make)
+
+
+def cli_weights(seed: int, folder: str, scratch: str, smi: str,
+                steps: int = 5) -> str:
+    """Phase 10 (a, b): export the trained folder as backbone.pth and
+    frb.npz, then `cli.train` from each as `pretrained_backbone`, beside a
+    fresh start; -> the backbone.pth path."""
+    from msml_torch.cli.train import main, parse_args
+    from msml_torch.core.config import Config
+    from msml_torch.core.weight_folder import read_state_dict, weights_path
+    from msml_torch.tools import export_frb, export_torch
+    from msml_torch.tools.load_weights import group
+
+    t0 = time.perf_counter()
+    pth = export_torch.main(export_torch.parse_args(
+        ["--weight_folder", folder, "--out",
+         os.path.join(scratch, "backbone.pth")]))
+    t1 = time.perf_counter()
+    npz = export_frb.main(export_frb.parse_args(
+        ["--weight_folder", folder, "--out", os.path.join(scratch, "frb")]))
+    t2 = time.perf_counter()
+    print(f"[10 weights] tools.export_torch: {os.path.getsize(pth):,} B in "
+          f"{t1 - t0:.2f} s; tools.export_frb: {os.path.getsize(npz):,} B "
+          f"in {t2 - t1:.2f} s (from "
+          f"{os.path.relpath(weights_path(folder), folder)})")
+    donor = {k: v.to("cuda") for k, v in read_state_dict(
+        weights_path(folder)).items()}
+
+    def overlaid(key, trunk_only):
+        g = group(key)
+        return (g is not None and (g == "frb" or not trunk_only)
+                and key != "frb.features.weight"
+                and not key.endswith("num_batches_tracked"))
+
+    runs = {}
+    for name, path in (("fresh", ""), ("backbone.pth", pth),
+                       ("frb.npz", npz)):
+        seen, undo = record_first_step()
+        out = os.path.join(scratch, "pretrained_" + name.replace(".", "_"))
+        cfg = Config.from_dict(dict(ARC18_MSML, dataset="synthetic",
+                                    num_classes=10572, out_folder=out,
+                                    pretrained_backbone=path))
+        reset_launches()
+        try:
+            state = main(parse_args(["--steps", str(steps), "--log-every",
+                                     "5", "--seed", str(seed), "--device",
+                                     "cuda"]), cfg)
+        finally:
+            undo()
+        torch.cuda.synchronize()
+        launches = read_launches()
+        del state
+        with open(os.path.join(out, "arc18_msml_1", "training.log")) as f:
+            counts = re.findall(r"loaded (\d+) pretrained backbone tensors",
+                                f.read())
+        if launches != per_step(steps) or len(counts) != bool(path):
+            fail(f"cli from {name}: launches {launches}, expected "
+                 f"{per_step(steps)}; logged counts {counts}")
+        runs[name] = (seen, counts)
+    fresh = runs["fresh"][0]["weights"]
+    for name in ("backbone.pth", "frb.npz"):
+        got = runs[name][0]["weights"]
+        keys = [k for k in got if overlaid(k, name == "frb.npz")]
+        bad = [k for k in got if not torch.equal(
+            got[k], donor[k] if k in keys else fresh[k])]
+        if bad or not keys:
+            fail(f"cli from {name}: {len(bad)} tensors differ before step "
+                 f"1 (first: {bad[:3]}), {len(keys)} overlaid")
+        print(f"[10 weights] cli.train from {name} (pretrained_backbone, "
+              f"{steps} steps, bf16, B={B_TRAIN}): before step 1 "
+              f"{len(keys)} of {len(got)} tensors equal the trained "
+              f"folder's bit for bit on the card and the other "
+              f"{len(got) - len(keys)} a fresh init's; log: loaded "
+              f"{runs[name][1][0]} pretrained backbone tensors; launches "
+              f"per_step({steps}); first-step total_loss "
+              f"{runs[name][0]['loss']:.4f} (fresh start "
+              f"{runs['fresh'][0]['loss']:.4f})")
+    return pth
+
+
+def pair_bin(path: str, seed: int, pairs: int) -> str:
+    """`pairs` synthetic pairs as a .bin of binary PPM images."""
+    import pickle
+
+    from msml_torch.data.bin_loader import ppm_encode
+
+    data, issame = synthetic_pairs(seed, pairs)
+    with open(path, "wb") as f:
+        pickle.dump(([ppm_encode(a.astype(np.uint8)) for a in data[0]],
+                     issame), f)
+    return path
+
+
+def host_sweep(argv) -> tuple:
+    """`cli.test` (the host sweep) quietly; -> (rows, launches, seconds:
+    wall, forward, metrics)."""
+    import contextlib
+    import io
+
+    from msml_torch.cli import serve
+    from msml_torch.cli import test as cli_test
+    from msml_torch.eval import occ_sweep, verification
+
+    spent = {"forward": 0.0, "metrics": 0.0}
+
+    def timed(fn, key):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spent[key] += time.perf_counter() - t0
+        return call
+
+    patched = [(serve, "numpy_forward"), (verification, "evaluate"),
+               (occ_sweep, "roc_acc_and_tarfar")]
+    saved = [getattr(m, n) for m, n in patched]
+    serve.numpy_forward = lambda module, device: timed(
+        saved[0](module, device), "forward")
+    verification.evaluate = timed(saved[1], "metrics")
+    occ_sweep.roc_acc_and_tarfar = timed(saved[2], "metrics")
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            rows = cli_test.main(cli_test.parse_args(argv))
+    finally:
+        for (m, n), fn in zip(patched, saved):
+            setattr(m, n, fn)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    spent["wall"] = time.perf_counter() - t0
+    return rows, read_launches(), spent
+
+
+def pairs_apart(acc_diff: float) -> float:
+    """An avg_acc difference of the REF_PAIRS sweep in pairs (a mean over
+    folds of 1/REF_PAIRS steps, rounded off its float error)."""
+    return round(acc_diff * REF_PAIRS, 6)
+
+
+def features_of(path: str) -> dict:
+    return {n: np.load(os.path.join(path, n)) for n in sorted(
+        os.listdir(path))}
+
+
+def cli_host_sweep(seed: int, folder: str, scratch: str, smi: str,
+                   pth: str) -> dict:
+    """Phase 10 (c): `cli.test` without `--device-sweep`, protocols BB and
+    NB, on the card; held against the port's sweep on the CPU in float32;
+    `--weight backbone.pth` against the folder; -> the BB sweep's
+    launches."""
+    from msml_torch.core.weight_folder import weights_path
+
+    big = pair_bin(os.path.join(scratch, "host.bin"), seed, HOST_PAIRS)
+    small = pair_bin(os.path.join(scratch, "ref.bin"), seed, REF_PAIRS)
+    common = ["--fill_type", "black", "--repeats", "1"]
+    forwards = 2 * 10 * math.ceil(2 * HOST_PAIRS / HOST_BATCH)
+    want = {"augment_batch": 0, "prelu_fwd": forwards * PRELU_SITES,
+            "prelu_bwd": 0, "conv3x3_fwd": forwards * CONV_SITES,
+            "conv3x3_dw": 0}
+    launches = {}
+    for protocol in ("BB", "NB"):
+        rows, launches[protocol], s = host_sweep(
+            ["--weight_folder", folder, "--bin", big, "--protocol",
+             protocol, "--device", "cuda"] + common)
+        if launches[protocol] != want or len(rows) != 10 or not all(
+                math.isfinite(v) for r in rows for v in (
+                    r["avg_acc"], r["roc_acc"], *r["tar_at_far"])):
+            fail(f"host sweep {protocol}: {len(rows)} rows, launches "
+                 f"{launches[protocol]}, expected {want}")
+        images = 2 * 10 * 2 * HOST_PAIRS
+        host = s["wall"] - s["forward"] - s["metrics"]
+        print(f"[10 host sweep] {smi}: cli.test protocol {protocol}, fill "
+              f"black, 1 repeat, {HOST_PAIRS} PPM pairs, --batch-size "
+              f"{HOST_BATCH}: {s['wall']:.2f} s wall for {images} images "
+              f"({images / s['wall']:.1f} img/s; forward alone "
+              f"{images / s['forward']:.1f} img/s): forward "
+              f"{s['forward']:.2f} s ({forwards} calls, "
+              f"{s['forward'] / forwards * 1e3:.2f} ms each), host PIL + "
+              f"numpy {host:.2f} s, metrics {s['metrics']:.2f} s; avg_acc "
+              + ", ".join(f"{r['lo']}%: {r['avg_acc']:.4f}" for r in rows)
+              + f"; launches {launches[protocol]}")
+
+    # the card against the port on the CPU in float32: the same sweep, seed
+    # and pairs. The card runs the folder's bf16, held by feature cosine
+    # (its rows are printed: a 10-fold threshold on folds of 2 pairs flips
+    # whole pairs for a 1e-4 change of a distance), and float32 with TF32
+    # off, held by rows within one pair. The float32 runs read the
+    # checkpoint through --weight with the folder's config at fp16: false.
+    f32 = os.path.join(scratch, "f32_config")
+    os.makedirs(f32, exist_ok=True)
+    with open(os.path.join(folder, "config.yaml")) as f:
+        raw = json.load(f)
+    with open(os.path.join(f32, "config.yaml"), "w") as f:
+        json.dump(dict(raw, fp16=False), f)
+    as_f32 = ["--weight_folder", f32, "--weight", weights_path(folder)]
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    card_bb = None
+    for protocol in ("BB", "NB"):
+        got = {}
+        for where, argv in (
+                ("bf16", ["--weight_folder", folder, "--device", "cuda"]),
+                ("f32", as_f32 + ["--device", "cuda"]),
+                ("cpu", as_f32 + ["--device", "cpu"])):
+            feats = os.path.join(scratch, f"feats_{protocol}_{where}")
+            if where == "f32":
+                torch.backends.cudnn.allow_tf32 = False
+                torch.backends.cuda.matmul.allow_tf32 = False
+            try:
+                rows, _, s = host_sweep(argv + [
+                    "--bin", small, "--protocol", protocol,
+                    "--save-features", feats] + common)
+            finally:
+                torch.backends.cudnn.allow_tf32, \
+                    torch.backends.cuda.matmul.allow_tf32 = tf32
+            got[where] = (rows, features_of(feats), s["wall"])
+        ref_rows, ref_feats, cpu_s = got["cpu"]
+        cos, apart = {}, {}
+        for where in ("bf16", "f32"):
+            rows, feats, _ = got[where]
+            if feats.keys() != ref_feats.keys() or len(feats) != 10:
+                fail(f"host sweep {protocol} {where}: feature files "
+                     f"{sorted(feats)} vs {sorted(ref_feats)}")
+            cos[where] = min(cosines(torch.from_numpy(feats[n]),
+                                     torch.from_numpy(ref_feats[n])).min()
+                             .item() for n in feats)
+            apart[where] = max(pairs_apart(abs(a["avg_acc"] - b["avg_acc"]))
+                               for a, b in zip(rows, ref_rows))
+        if not (cos["bf16"] >= BF16_MIN_COS and cos["f32"] >= CPU_MIN_COS
+                and apart["f32"] <= 1):
+            fail(f"host sweep {protocol} vs the CPU in float32: min feature "
+                 f"cosine {cos} (bf16 >= {BF16_MIN_COS}, f32 >= "
+                 f"{CPU_MIN_COS}), rows apart by {apart} pairs (f32 <= 1)")
+        if protocol == "BB":
+            card_bb = got["bf16"][:2]
+        print(f"[10 host sweep] protocol {protocol}, {REF_PAIRS} pairs, the "
+              f"port on the CPU in float32 ({cpu_s:.1f} s) vs the card, same "
+              f"seed: bf16 ({got['bf16'][2]:.1f} s) min feature cosine "
+              f"{cos['bf16']:.6f} (>= {BF16_MIN_COS}), rows up to "
+              f"{apart['bf16']:g} pairs apart; float32, TF32 off "
+              f"({got['f32'][2]:.1f} s) min cosine {cos['f32']:.8f} (>= "
+              f"{CPU_MIN_COS}), rows up to {apart['f32']:g} pairs apart (<= "
+              f"1); avg_acc CPU "
+              + ", ".join(f"{r['avg_acc']:.3f}" for r in ref_rows)
+              + "; card bf16 "
+              + ", ".join(f"{r['avg_acc']:.3f}" for r in got["bf16"][0])
+              + "; card f32 "
+              + ", ".join(f"{r['avg_acc']:.3f}" for r in got["f32"][0]))
+
+    # --weight backbone.pth (config.yaml only from the folder) against the
+    # folder's own checkpoint, on the card: without occlusion, the draws
+    # and images of the BB sweep's first row
+    weight_feats = os.path.join(scratch, "feats_weight")
+    rows, _, _ = host_sweep(["--weight_folder", folder, "--weight", pth,
+                             "--bin", small, "--device", "cuda", "--no-occ",
+                             "--save-features", weight_feats] + common)
+    got, want = features_of(weight_feats), card_bb[1]
+    diff = max(np.abs(got[n] - want[n]).max() for n in got)
+    acc = abs(rows[0]["avg_acc"] - card_bb[0][0]["avg_acc"])
+    if list(got) != ["feat_lo0_rep0.npy"] or not pairs_apart(acc) <= 1:
+        fail(f"host sweep --weight backbone.pth vs the folder: avg_acc diff "
+             f"{acc}, feature files {sorted(got)}")
+    same = "equal" if rows[0] == card_bb[0][0] else "differs"
+    print(f"[10 host sweep] --weight backbone.pth (config.yaml from the "
+          f"folder) vs the folder's checkpoint, no occlusion, {REF_PAIRS} "
+          f"pairs, on the card: row {same} (avg_acc diff {acc:.4f}), max "
+          f"abs feature diff {diff:.3g}")
+    return launches["BB"]
 
 
 REC_IDS, REC_VIEWS = 200, 12  # 200 x (12 - 2 held out) = 2000 train images
@@ -1811,7 +2135,7 @@ def main(argv=None):
     train_launches, train_img_s = phase_train(args.seed)
     phase_train_cpu_parity(args.seed)
     (cli_launches, cli_speeds, cli_sweep_launches, serve_launches,
-     serve_errs) = phase_cli(args.seed, smi)
+     serve_errs, host_launches) = phase_cli(args.seed, smi)
     rec_launches = phase_data(args.seed, smi, cli_speeds)
 
     # this slice's path is the training CLI: its launches; the uint8 input
@@ -1830,6 +2154,7 @@ def main(argv=None):
         e["launches_cli_sweep"] = cli_sweep_launches[e["name"]]
         e["launches_serve"] = serve_launches[e["name"]]
         e["launches_cli_rec"] = rec_launches[e["name"]]
+        e["launches_cli_host_sweep"] = host_launches[e["name"]]
         e["max_abs_err"] = max(e["max_abs_err"],
                                serve_errs.get(e["name"], 0.0))
     print(f"[7 summary] {smi}: CLI {cli_speeds[-1]:.1f} img/s (last Speed "

@@ -25,11 +25,17 @@ synthetic`; their peer teacher (`use_ori: true`) is not ported, so such a
 run stops with NotImplementedError. `main(args, cfg)` also takes a Config
 in place of the YAML file (the card's machine has no PyYAML).
 
+A config's `pretrained_backbone` (a `.npz` of `tools/export_frb.py`, a
+reference or exported `backbone.pth`, a vanilla iResNet `.pth` or a
+`ckpt/<step>.pt`) is overlaid on the fresh model before the first step
+(`tools/load_weights.py`); `--resume` then wins over it.
+
 On `--resume` the run continues from the latest checkpoint's step and, as
 the JAX CLI does (`msml_tpu/cli/train.py:276-306`), replays the
 interrupted epoch from its first batch. SIGTERM saves a checkpoint at the
 next step boundary and exits cleanly. Not ported yet, and refused:
-`--strategy`, `--scan-steps` above 1, `--multihost` and PartialFC.
+`--strategy`, `--scan-steps` above 1, `--multihost`, PartialFC and
+`peer_weights` (the frozen peer teacher).
 """
 
 from __future__ import annotations
@@ -83,6 +89,8 @@ def not_ported(args, cfg) -> list:
         ("--strategy " + args.strategy, bool(args.strategy)),
         ("--scan-steps %d" % args.scan_steps, args.scan_steps != 1),
         ("--multihost", args.multihost),
+        ("peer_weights (the frozen peer teacher)",
+         bool(cfg.get("peer_weights"))),
         ("PartialFC (sample_rate < 1 or use_partial_fc)",
          float(cfg.get("sample_rate", 1.0)) < 1.0
          or bool(cfg.get("use_partial_fc", False)))) if on]
@@ -125,6 +133,7 @@ def _main_inner(args, cfg, preempted):
     from msml_torch.data.pipeline import device_prefetch
     from msml_torch.data.synthetic import SyntheticDataset
     from msml_torch.nn.msml import msml_from_config
+    from msml_torch.tools.load_weights import load_pretrained
     from msml_torch.train.train_step import (init_train_state,
                                              make_eval_step, make_train_step)
 
@@ -157,6 +166,8 @@ def _main_inner(args, cfg, preempted):
     model = msml_from_config(cfg, policy=policy, device=device,
                              seed=args.seed, head=True)
     state = init_train_state(model, cfg, device, args.seed)
+    # pretrained backbone overlay (iresnet.py:410-442); a resume wins
+    load_pretrained(state, cfg)
     step_fn = make_train_step(cfg)
 
     if args.resume:

@@ -5,8 +5,9 @@ Counterpart of `msml_tpu/core/weight_folder.py` for the port. The folder
 holds `config.yaml` and either the checkpoints that `msml_torch.cli.train`
 writes (`ckpt/<step>.pt`, the latest of which is restored, as the JAX
 package restores its latest orbax checkpoint) or a `backbone.pth` with the
-reference's torch names (the file `python -m msml_tpu.tools.export_torch`
-writes). Orbax checkpoints need JAX and are not read here.
+reference's torch names (the file `python -m msml_torch.tools.export_torch`
+or `python -m msml_tpu.tools.export_torch` writes). Orbax checkpoints need
+JAX and are not read here.
 """
 
 from __future__ import annotations
@@ -37,22 +38,35 @@ def weights_path(weight_folder: str) -> str:
     return path
 
 
-def load_weight_folder(weight_folder: str, device="cuda"):
+def read_state_dict(path: str) -> dict:
+    """The torch state dict in `path`: a bare one, or the one under
+    "state_dict" (a reference checkpoint) or "model" (a `ckpt/<step>.pt`
+    of `msml_torch.cli.train`). Loaded with weights_only=True."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    for key in ("state_dict", "model"):
+        if isinstance(sd, dict) and key in sd:
+            return sd[key]
+    return sd
+
+
+def load_weight_folder(weight_folder: str, device="cuda", weight=None):
     """-> (cfg, model) in eval mode, with the weights of `weights_path`:
     the `model` state dict of the latest training checkpoint, or else
-    `backbone.pth` (a bare state dict or one under "state_dict").
+    `backbone.pth` (a bare state dict or one under "state_dict"). With
+    `weight`, a file of the same kinds, the folder supplies only
+    `config.yaml` and the weights come from that file (`cli.test
+    --weight`).
 
     The precision follows the folder's own config (`fp16: true` -> bf16
     compute). The classification head is dropped: eval never uses it
     (cli/test.py:60-72)."""
     dev = resolve_device(device)
     cfg = load_yaml(os.path.join(weight_folder, "config.yaml"))
-    path = weights_path(weight_folder)
+    path = weight or weights_path(weight_folder)
     cfg.out_folder = os.path.dirname(weight_folder.rstrip("/")) or "out"
     config_init(cfg, make_output_dir=False)
     model = msml_from_config(cfg, device=dev)
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    sd = sd["model"] if "model" in sd else sd.get("state_dict", sd)
-    sd = {k: v for k, v in sd.items() if not k.startswith("classification.")}
+    sd = {k: v for k, v in read_state_dict(path).items()
+          if not k.startswith("classification.")}
     model.load_state_dict(sd, strict=True)
     return cfg, model

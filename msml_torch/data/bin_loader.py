@@ -1,7 +1,7 @@
 """Verification-set `.bin` loader (lfw.bin / cfp_fp.bin / agedb_30.bin).
 
-The port's own copy of `msml_tpu/data/bin_loader.py::load_bin` and
-`msml_tpu/data/recordio.py::imdecode`. Parity target
+The port's own copy of `msml_tpu/data/bin_loader.py` (`load_bin`,
+`load_bin_pil`) and `msml_tpu/data/recordio.py::imdecode`. Parity target
 `eval/verification.py:201-236`: a pickled (bins, issame_list) pair where
 bins are encoded JPEGs; each image is decoded to (H, W, 3) RGB and a
 horizontally flipped copy is produced. `cv2` is imported only to decode
@@ -58,27 +58,42 @@ def imdecode(buf: bytes, to_rgb: bool = True) -> np.ndarray:
     return img[:, :, ::-1] if to_rgb else img
 
 
-def load_bin(path: str, image_size=(112, 112)
-             ) -> Tuple[List[np.ndarray], List[bool]]:
-    """-> ([orig (N,H,W,3) f32 0..255, flipped ...], issame)."""
+def _pairs(path: str) -> Tuple[List[bytes], List[bool]]:
+    """The .bin's encoded images (2 per pair) and its issame list."""
     with open(path, "rb") as f:
         try:
             bins, issame_list = pickle.load(f)
         except UnicodeDecodeError:
             f.seek(0)
             bins, issame_list = pickle.load(f, encoding="bytes")
-    n = len(issame_list) * 2
-    data = np.empty((n, image_size[0], image_size[1], 3), np.float32)
-    for i in range(n):
-        buf = bins[i]
-        if not isinstance(buf, (bytes, bytearray)):
-            buf = bytes(buf)
+    bufs = [b if isinstance(b, (bytes, bytearray)) else bytes(b)
+            for b in bins[:len(issame_list) * 2]]
+    return bufs, list(issame_list)
+
+
+def load_bin(path: str, image_size=(112, 112)
+             ) -> Tuple[List[np.ndarray], List[bool]]:
+    """-> ([orig (N,H,W,3) f32 0..255, flipped ...], issame)."""
+    bufs, issame = _pairs(path)
+    data = np.empty((len(bufs), image_size[0], image_size[1], 3), np.float32)
+    for i, buf in enumerate(bufs):
         img = imdecode(buf)
         if img.shape[0] != image_size[0]:
             img = _resize_short(img, image_size[0])
         data[i] = img
     flipped = data[:, :, ::-1, :].copy()
-    return [data, flipped], list(issame_list)
+    return [data, flipped], issame
+
+
+def load_bin_pil(path: str) -> Tuple[list, List[bool]]:
+    """-> (RGB PIL images, issame): the variant of the host occlusion
+    sweep, which composes PIL transforms (`datasets/load_dataset.py:
+    431-467`). Pillow is imported here."""
+    from PIL import Image
+
+    bufs, issame = _pairs(path)
+    # (H, W, 3) uint8 arrays: RGB images
+    return [Image.fromarray(imdecode(buf)) for buf in bufs], issame
 
 
 def _resize_short(img: np.ndarray, size: int) -> np.ndarray:

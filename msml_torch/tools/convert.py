@@ -1,32 +1,38 @@
-"""Convert msml_tpu (flax) parameter trees into the port's state dict.
+"""Convert between msml_tpu (flax) parameter trees and the port's state dict.
 
-The port's own copy of the exporter `msml_tpu/tools/export_torch.py`, for
+The port's own copy of the exporter `msml_tpu/tools/export_torch.py` and of
+its inverse `msml_tpu/tools/import_torch.py::import_msml_checkpoint`, for
 the modules the port has: the iResNet trunk, the FMCnn operators, the
-U-Net and the classification head. The trees come in as nested dicts of
-numpy arrays (e.g. from `jax.device_get`); no JAX is needed here. The
-result carries the reference's torch names, so
+U-Net and the classification head. The trees are nested dicts of numpy
+arrays (e.g. from `jax.device_get`); no JAX or flax is needed here. The
+state dict carries the reference's torch names, so
 `MSML.load_state_dict(..., strict=True)` takes it.
 
-Layouts:
+Layouts (flax -> torch; the inverse undoes each):
   conv   (kh, kw, I, O) -> (O, I, kh, kw)
   deconv (kh, kw, O, I) -> (I, O, kh, kw)
   frb.fc (H*W*C, out)   -> (out, C*H*W): the flax model flattens HWC, the
                            reference and the port flatten C-major
   BN     scale/bias/mean/var -> weight/bias/running_mean/running_var
                                 (+ num_batches_tracked = 0)
-  features BatchNorm1d  -> weight = ones (frozen at 1.0, iresnet.py:119-120)
+  features BatchNorm1d  -> weight = ones (frozen at 1.0, iresnet.py:119-120;
+                           flax has use_scale=False, so the inverse drops it)
   classification        -> weight (num_classes, dim) as it is, + bias for
                            Softmax (`msml_tpu/tools/export_torch.py:248-253`)
+
+`flatten` / `unflatten` are flax's `traverse_util` dicts with `/`-joined
+keys, the key scheme of the `.npz` files of `tools/export_frb.py`.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
 
 Path = Tuple[str, ...]
+FC_HW = 7  # the final 7 x 7 map at 112 input
 
 
 def _get(tree, path: Path) -> np.ndarray:
@@ -43,35 +49,47 @@ def _has(tree, path: Path) -> bool:
     return True
 
 
-class _Emitter:
-    def __init__(self, params: Dict, batch_stats: Dict):
-        self.p, self.s = params, batch_stats
-        self.out: Dict[str, np.ndarray] = {}
+def _set(tree: Dict, path: Path, value) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+class _Layout:
+    """One walk over the modules that records each torch key beside the
+    flax leaf it comes from: (key, tree 'params' / 'batch_stats' / None,
+    flax path, kind). `has(flax path, torch key prefix)` says whether a
+    module is there, asked of whichever side the conversion starts from."""
+
+    def __init__(self, has: Callable[[Path, str], bool]):
+        self.has = has
+        self.leaves: List[Tuple[str, str, Path, str]] = []
+
+    def leaf(self, key: str, tree, path: Path, kind: str = "plain"):
+        self.leaves.append((key, tree, path, kind))
 
     def conv(self, dst: str, path: Path, bias: bool = False):
-        # HWIO -> OIHW; for a transposed conv (kh, kw, O, I) -> (I, O, kh, kw)
-        self.out[dst + ".weight"] = np.transpose(
-            _get(self.p, path + ("kernel",)), (3, 2, 0, 1))
+        self.leaf(dst + ".weight", "params", path + ("kernel",), "conv")
         if bias:
-            self.out[dst + ".bias"] = _get(self.p, path + ("bias",))
+            self.leaf(dst + ".bias", "params", path + ("bias",))
 
-    def bn(self, dst: str, path: Path):
-        self.out[dst + ".weight"] = _get(self.p, path + ("scale",))
-        self.bn_stats(dst, path)
-
-    def bn_stats(self, dst: str, path: Path):
-        self.out[dst + ".bias"] = _get(self.p, path + ("bias",))
-        self.out[dst + ".running_mean"] = _get(self.s, path + ("mean",))
-        self.out[dst + ".running_var"] = _get(self.s, path + ("var",))
-        self.out[dst + ".num_batches_tracked"] = np.asarray(0, np.int64)
+    def bn(self, dst: str, path: Path, scale: bool = True):
+        if scale:
+            self.leaf(dst + ".weight", "params", path + ("scale",))
+        else:
+            self.leaf(dst + ".weight", None, path + ("bias",), "ones")
+        self.leaf(dst + ".bias", "params", path + ("bias",))
+        self.leaf(dst + ".running_mean", "batch_stats", path + ("mean",))
+        self.leaf(dst + ".running_var", "batch_stats", path + ("var",))
+        self.leaf(dst + ".num_batches_tracked", None, (), "zero")
 
     def prelu(self, dst: str, path: Path):
-        self.out[dst + ".weight"] = _get(self.p, path + ("alpha",))
+        self.leaf(dst + ".weight", "params", path + ("alpha",))
 
 
-def _stage(e: _Emitter, dst: str, path: Path):
+def _stage(e: _Layout, dst: str, path: Path):
     i = 0
-    while _has(e.p, path + (f"block{i}",)):
+    while e.has(path + (f"block{i}",), f"{dst}.{i}."):
         d, p = f"{dst}.{i}", path + (f"block{i}",)
         e.bn(d + ".bn1", p + ("bn1",))
         e.conv(d + ".conv1", p + ("conv1",))
@@ -79,13 +97,13 @@ def _stage(e: _Emitter, dst: str, path: Path):
         e.prelu(d + ".prelu", p + ("prelu",))
         e.conv(d + ".conv2", p + ("conv2",))
         e.bn(d + ".bn3", p + ("bn3",))
-        if _has(e.p, p + ("downsample_conv",)):
+        if e.has(p + ("downsample_conv",), d + ".downsample."):
             e.conv(d + ".downsample.0", p + ("downsample_conv",))
             e.bn(d + ".downsample.1", p + ("downsample_bn",))
         i += 1
 
 
-def _stem_and_stages(e: _Emitter, dst: str, path: Path):
+def _stem_and_stages(e: _Layout, dst: str, path: Path):
     e.conv(dst + ".conv1", path + ("conv1",))
     e.bn(dst + ".bn1", path + ("bn1",))
     e.prelu(dst + ".prelu", path + ("prelu",))
@@ -94,27 +112,22 @@ def _stem_and_stages(e: _Emitter, dst: str, path: Path):
     e.bn(dst + ".bn2", path + ("bn2",))
 
 
-def _iresnet(e: _Emitter, dst: str, path: Path):
+def _iresnet(e: _Layout, dst: str, path: Path):
     _stem_and_stages(e, dst, path)
-    fc = _get(e.p, path + ("fc", "kernel"))
-    out = fc.shape[1]
-    c = fc.shape[0] // 49  # 7 x 7 final map at 112 input
-    e.out[dst + ".fc.weight"] = np.transpose(
-        fc.reshape(7, 7, c, out), (3, 2, 0, 1)).reshape(out, c * 49)
-    e.out[dst + ".fc.bias"] = _get(e.p, path + ("fc", "bias"))
-    bias = _get(e.p, path + ("features", "bias"))
-    e.out[dst + ".features.weight"] = np.ones_like(bias)
-    e.bn_stats(dst + ".features", path + ("features",))
+    e.leaf(dst + ".fc.weight", "params", path + ("fc", "kernel"), "fc")
+    e.leaf(dst + ".fc.bias", "params", path + ("fc", "bias"))
+    e.bn(dst + ".features", path + ("features",), scale=False)
 
 
-def _fm(e: _Emitter, dst: str, path: Path):
-    if not _has(e.p, path + ("same_conv",)):
+def _fm(e: _Layout, dst: str, path: Path):
+    if not e.has(path + ("same_conv",), dst + ".same_conv."):
         return  # FMNone: no parameters either side
-    if _has(e.p, path + ("conv_m",)) or _has(e.p, path + ("conv1",)):
+    if (e.has(path + ("conv_m",), dst + ".conv_m.")
+            or e.has(path + ("conv1",), dst + ".conv1.")):
         raise NotImplementedError("the peer-guided FM path is not ported yet")
     e.conv(dst + ".same_conv", path + ("same_conv",))
     i = 0
-    while _has(e.p, path + (f"res{i}",)):
+    while e.has(path + (f"res{i}",), f"{dst}.res_block.{i}."):
         d, p = f"{dst}.res_block.{i}", path + (f"res{i}",)
         for ci in (1, 2, 3):
             e.conv(f"{d}.conv{ci}", p + (f"conv{ci}",))
@@ -123,7 +136,7 @@ def _fm(e: _Emitter, dst: str, path: Path):
         i += 1
 
 
-def _unet(e: _Emitter, dst: str, path: Path):
+def _unet(e: _Layout, dst: str, path: Path):
     _stem_and_stages(e, dst, path)
     for gi in range(1, 6):
         for leg in ("l1", "l2", "r1", "r2"):
@@ -133,24 +146,101 @@ def _unet(e: _Emitter, dst: str, path: Path):
         e.conv(f"{dst}.deconv{di}", path + (f"deconv{di}",))
 
 
-def state_dict_from_jax(params: Dict, batch_stats: Dict
-                        ) -> Dict[str, torch.Tensor]:
-    """(params, batch_stats) flax trees -> the port's MSML state dict."""
-    if not _has(params, ("frb", "conv1", "kernel")):
+def _walk(e: _Layout) -> _Layout:
+    if not e.has(("frb", "conv1", "kernel"), "frb.conv1.weight"):
         raise NotImplementedError("only the iResNet FRB is ported so far")
-    if _has(params, ("frb", "decoder")) or _has(params, ("peer",)):
+    if e.has(("frb", "decoder"), "frb.decoder.") or e.has(("peer",),
+                                                           "frb.peer."):
         raise NotImplementedError(
             "the recover decoder and the peer teacher are not ported yet")
-    e = _Emitter(params, batch_stats)
     _iresnet(e, "frb", ("frb",))
     for i in range(4):
         _fm(e, f"frb.fm_ops.{i}", (f"fm_op{i}",))
-    if _has(params, ("osb",)):
+    if e.has(("osb",), "osb."):
         _unet(e, "osb", ("osb",))
     for name in ("weight", "bias"):
-        if _has(params, ("classification", name)):
-            e.out[f"classification.{name}"] = _get(
-                params, ("classification", name))
-    return {k: torch.from_numpy(np.ascontiguousarray(
-        v if v.dtype == np.int64 else v.astype(np.float32)))
-        for k, v in e.out.items()}
+        if e.has(("classification", name), f"classification.{name}"):
+            e.leaf(f"classification.{name}", "params",
+                   ("classification", name))
+    return e
+
+
+class _Emitter(_Layout):
+    """The walk over flax trees; `out` is the state dict it gives, as
+    numpy arrays."""
+
+    def __init__(self, params: Dict, batch_stats: Dict):
+        super().__init__(lambda path, _: _has(params, path))
+        self.trees = {"params": params, "batch_stats": batch_stats}
+
+    @property
+    def out(self) -> Dict[str, np.ndarray]:
+        out = {}
+        for key, tree, path, kind in self.leaves:
+            if kind == "zero":
+                out[key] = np.asarray(0, np.int64)
+                continue
+            v = _get(self.trees[tree or "params"], path)
+            if kind == "conv":  # HWIO -> OIHW; transposed (kh,kw,O,I) -> IO
+                v = np.transpose(v, (3, 2, 0, 1))
+            elif kind == "fc":
+                c, out_dim = v.shape[0] // FC_HW ** 2, v.shape[1]
+                v = np.transpose(v.reshape(FC_HW, FC_HW, c, out_dim),
+                                 (3, 2, 0, 1)).reshape(out_dim, -1)
+            elif kind == "ones":
+                v = np.ones_like(v)
+            out[key] = v
+        return out
+
+
+def state_dict_from_jax(params: Dict, batch_stats: Dict
+                        ) -> Dict[str, torch.Tensor]:
+    """(params, batch_stats) flax trees -> the port's MSML state dict."""
+    return {k: torch.from_numpy(np.array(
+        v, np.int64 if v.dtype == np.int64 else np.float32, order="C"))
+        for k, v in _walk(_Emitter(params, batch_stats)).out.items()}
+
+
+def jax_from_state_dict(state_dict) -> Tuple[Dict, Dict]:
+    """The port's MSML state dict (tensors or arrays, torch names) ->
+    (params, batch_stats) flax trees of float32 numpy arrays: what
+    `msml_tpu.tools.import_torch.import_msml_checkpoint` makes of it.
+    `num_batches_tracked` and the `features` scale have no flax leaf and
+    are dropped."""
+    sd = {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+          else np.asarray(v) for k, v in state_dict.items()}
+    trees = {"params": {}, "batch_stats": {}}
+    for key, tree, path, kind in _walk(_Layout(
+            lambda _, prefix: any(k.startswith(prefix) for k in sd))).leaves:
+        if tree is None:
+            continue
+        v = sd[key]
+        if kind == "conv":
+            v = np.transpose(v, (2, 3, 1, 0))
+        elif kind == "fc":
+            out_dim, c = v.shape[0], v.shape[1] // FC_HW ** 2
+            v = np.transpose(v.reshape(out_dim, c, FC_HW, FC_HW),
+                             (2, 3, 1, 0)).reshape(-1, out_dim)
+        _set(trees[tree], path, np.asarray(v, np.float32))
+    return trees["params"], trees["batch_stats"]
+
+
+def flatten(tree: Dict, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Nested dict -> {'a/b/c': leaf} (flax `traverse_util.flatten_dict`
+    with `/`-joined keys), each key led by `prefix/` if one is given."""
+    flat = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, dict):
+            flat.update(flatten(v, key))
+        else:
+            flat[key] = v
+    return flat
+
+
+def unflatten(flat: Dict[str, np.ndarray]) -> Dict:
+    """The inverse of `flatten` (without a prefix)."""
+    tree: Dict = {}
+    for key, v in flat.items():
+        _set(tree, tuple(key.split("/")), v)
+    return tree

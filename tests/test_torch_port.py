@@ -93,8 +93,8 @@ def test_entry_points_default_to_cuda(arc18_cfg, tmp_path):
 def test_cli_refuses_what_is_not_ported():
     from msml_torch.cli import test as cli_test
 
-    for argv in (["--network", "iresnet18_v"], [], ["--device-sweep", "--vis"],
-                 ["--device-sweep", "--protocol", "NB"]):
+    for argv in (["--network", "iresnet18_v"], ["--vis"],
+                 ["--device-sweep", "--vis"], ["--quant", "int8"]):
         with pytest.raises(SystemExit, match="not ported yet"):
             cli_test.main(cli_test.parse_args(argv + ["--device", "cpu"]))
 
