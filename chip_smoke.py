@@ -60,8 +60,11 @@ Phases:
      trained model's eval features, and `msml_torch.cli.test
      --device-sweep` runs on it over a `.bin` of 40 synthetic PPM pairs;
   7. a summary line, the JSON line of the kernels (with their times, bounds
-     and launch counts on each path, `launches_cli_host_sweep` from 10's
-     BB sweep), then the final JSON line;
+     and launch counts on each path: `launches` on the training CLI, for
+     the int8 kernels on phase 11's quantized forward;
+     `launches_cli_host_sweep` from 10's BB sweep; `launches_quant`,
+     `launches_serve_quant` and `launches_cli_quant_sweep` from 11), then
+     the final JSON line;
   8. serve (run within phase 6, on the folder the training CLI wrote, so
      its lines come before 7's): `conv3x3_fwd` and `prelu_fwd` against
      their plain versions at the bucket batches 1, 2, 4, ..., 32 (bf16, the
@@ -109,13 +112,35 @@ Phases:
      eval forward on the card at `--batch-size` 25) over 200 PPM pairs,
      fill black, 1 repeat, protocols BB and NB: launches exactly 8
      `conv3x3_fwd` and 42 `prelu_fwd` per forward, the wall seconds split
-     into forward, host PIL + numpy and metrics; over 20 pairs the card's
-     saved features and rows against the port's own sweep on the CPU in
-     float32 (`--weight` of the checkpoint with the config at fp16:
-     false): the folder's bf16 by feature cosine >= 0.99, the card in
+     into forward, host PIL + numpy and metrics; over 20 pairs, protocol
+     BB without occlusion, the card's saved features and rows against the
+     port's own sweep on the CPU in float32 (`--weight` of the checkpoint
+     with the config at fp16: false): the folder's bf16 by feature cosine >= 0.99, the card in
      float32 with TF32 off by cosine >= 0.9999 and each row's avg_acc
      within one pair; and `--weight backbone.pth --no-occ` against the
-     first row of the folder's own sweep.
+     first row of the folder's own sweep;
+  11. int8 post-training quantization (within phase 6, on the folder the
+     training CLI wrote, after 10): `csrc/qconv_int8.cu` is built in phase
+     1 beside the others (it fails if a kernel there spills). The
+     folder's int8 copy (`core/quantize.quantize_eval_model`, bf16): at each
+     distinct int8 geometry of its 90 sites (89 convs and the fc) at
+     B = 8, at a 7 x 1 conv on an odd input one element off, and at the fc
+     at B = 512, `quant_act` and `qconv_int8` bit-equal to their plain
+     versions; the B = 512 quantized eval forward (this slice's path, its
+     launches counted alone: 90 of each int8 kernel and the 42 PReLUs)
+     against the float bf16 forward, feature cosine >= 0.998 on the mean
+     and >= 0.995 for each image (JAX's bound, 0.998 for the min over
+     images at random init, is held after phase 4 on phase 3's model and
+     images: its int8 copy against its bf16 forward, B = 512); 8 rows
+     among zero rows and among other images bit-equal; the int8 and
+     bf16 forwards' img/s; each distinct geometry at B = 512 on random
+     inputs: both kernels bit-equal to their plain versions, then timed
+     beside their bounds and cuDNN's bf16 op of the same shape;
+     then `tools.export_serving --quant int8` (its bytes beside phase 8's
+     float artifact), `cli.serve --quant int8` on the folder and the
+     int8 artifact's server over HTTP (answers against `runner.infer`
+     and each other, launches per forward), and `cli.test --device-sweep
+     --quant int8` on phase 6's 40 pairs, rows beside the float sweep's.
 
 Exits non-zero, without the final line, when CUDA is missing or any check
 fails. Needs no network or PyYAML; phase 9 needs Pillow and OpenCV.
@@ -255,15 +280,17 @@ def phase_build():
     all started together, and show each build."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from msml_torch.kernels import _nvcc, augment, conv3x3
+    from msml_torch.kernels import _nvcc, augment, conv3x3, qconv
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        list(pool.map(lambda lib: lib(), (conv3x3._lib, augment._lib)))
-    print(f"[1 build] csrc/conv3x3.cu and csrc/augment.cu loaded in "
-          f"{time.perf_counter() - t0:.1f} s (built side by side)")
+    with ThreadPoolExecutor(3) as pool:
+        list(pool.map(lambda lib: lib(), (conv3x3._lib, augment._lib,
+                                          qconv._lib)))
+    print(f"[1 build] csrc/conv3x3.cu, csrc/augment.cu and "
+          f"csrc/qconv_int8.cu loaded in {time.perf_counter() - t0:.1f} s "
+          "(built side by side)")
     spills = []
-    for name in ("conv3x3", "augment"):
+    for name in ("conv3x3", "augment", "qconv_int8"):
         info = _nvcc.builds.get(name)
         if info is None:  # a library of the same sources and flags was there
             print(f"[1 build] csrc/{name}.cu already built in "
@@ -274,17 +301,18 @@ def phase_build():
         kernel = None
         for line in info["log"].splitlines():
             if "Compiling entry function" in line:
-                m = re.search(r"(fwd_bf16|fwd_f32|dw_bf16|dw_f32|dw_reduce|"
-                              r"augment_cluster)(?:I((?:L[ib]\d+E)+)E)?",
-                              line)
+                m = re.search(r"\d(fwd_bf16|fwd_f32|dw_bf16|dw_f32|"
+                              r"dw_reduce|augment_cluster|qconv|act_amax|"
+                              r"act_quant_flat|act_quant)"
+                              r"(?:I((?:L[ib]\d+E)+)E)?", line)
                 args = re.findall(r"L[ib](\d+)E", m.group(2) or "") if m \
                     else []
                 kernel = (m.group(1) + (f"<{', '.join(args)}>" if args
                                         else "") if m else line)
             elif kernel and ("registers" in line or "spill" in line):
                 print(f"[1 build]   {kernel}: {line.strip()}")
-                if kernel.startswith(("fwd_bf16", "dw_bf16",
-                                      "augment_cluster")) and re.search(
+                if kernel.startswith(("fwd_bf16", "dw_bf16", "augment_cluster",
+                                      "qconv", "act_")) and re.search(
                         r"[1-9]\d* bytes spill", line):
                     spills.append(kernel)
     for name, b, dtype in (("f32 B=512", B, torch.float32),
@@ -864,9 +892,8 @@ def phase_sweep(seed: int, model, repeats: int = 2):
     n = data_list[0].shape[0]
     passes = 1 + 9 * repeats
     batches = passes * 2 * math.ceil(n / 512)
-    want = {"augment_batch": batches, "prelu_fwd": batches * PRELU_SITES,
-            "prelu_bwd": 0, "conv3x3_fwd": batches * CONV_SITES,
-            "conv3x3_dw": 0}
+    want = expect(augment_batch=batches, prelu_fwd=batches * PRELU_SITES,
+                  conv3x3_fwd=batches * CONV_SITES)
     if len(rows) != 10:
         fail(f"{len(rows)} sweep rows, expected 10")
     for row in rows:
@@ -885,10 +912,16 @@ def phase_sweep(seed: int, model, repeats: int = 2):
 
 
 def counted():
-    from msml_torch.kernels import augment, conv3x3, prelu
+    from msml_torch.kernels import augment, conv3x3, prelu, qconv
 
     return (augment.augment_batch, prelu.prelu_fwd, prelu.prelu_bwd,
-            conv3x3.conv3x3_fwd, conv3x3.conv3x3_dw)
+            conv3x3.conv3x3_fwd, conv3x3.conv3x3_dw, qconv.quant_act,
+            qconv.qconv_int8)
+
+
+def expect(**launches) -> dict:
+    """Launch counts by kernel: the given ones, 0 for every other."""
+    return {**{fn.__name__: 0 for fn in counted()}, **launches}
 
 
 def reset_launches():
@@ -903,10 +936,10 @@ def read_launches() -> dict:
 def per_step(steps: int) -> dict:
     """Launches of `steps` train steps: one input stage, the PReLU pair at
     every PReLU site, forward and dX at every conv site, dW at each."""
-    return {"augment_batch": steps, "prelu_fwd": steps * PRELU_SITES,
-            "prelu_bwd": steps * PRELU_SITES,
-            "conv3x3_fwd": steps * 2 * CONV_SITES,
-            "conv3x3_dw": steps * CONV_SITES}
+    return expect(augment_batch=steps, prelu_fwd=steps * PRELU_SITES,
+                  prelu_bwd=steps * PRELU_SITES,
+                  conv3x3_fwd=steps * 2 * CONV_SITES,
+                  conv3x3_dw=steps * CONV_SITES)
 
 
 def phase_train(seed: int, steps: int = 30):
@@ -1048,9 +1081,11 @@ def phase_train_cpu_parity(seed: int, b: int = 4):
 
 
 def phase_cli(seed: int, smi: str, steps: int = 20, resume_to: int = 24):
-    """The training CLI on the card, then the sweep and the serving surface
-    on the folder it wrote; -> (launches, img/s of its Speed lines,
-    the sweep's launches, the server's launches and kernel errors)."""
+    """The training CLI on the card, then the sweep, the serving surface,
+    the weights and the int8 quantization on the folder it wrote; ->
+    (launches, img/s of its Speed lines, the sweep's launches, the server's
+    launches and kernel errors, the host sweep's launches, phase 11's
+    results)."""
     from msml_torch.cli.train import main, parse_args
     from msml_torch.core.checkpoint import all_steps
     from msml_torch.core.config import Config
@@ -1095,13 +1130,14 @@ def phase_cli(seed: int, smi: str, steps: int = 20, resume_to: int = 24):
             fail(f"cli --resume: resumed {resumed}, step {state.step}")
         print(f"[6 cli] --resume from step {steps} ran to step {state.step}; "
               f"checkpoints {all_steps(output)}")
-        sweep_launches = cli_sweep(seed, state, output, out)
+        sweep_launches, sweep_rows = cli_sweep(seed, state, output, out)
         del state
         serve_launches, serve_errs = cli_serve(seed, output, out, smi)
         pth = cli_weights(seed, output, out, smi)
         host_launches = cli_host_sweep(seed, output, out, smi, pth)
+        quant = cli_quant(seed, output, out, smi, sweep_rows)
     return (launches, speeds, sweep_launches, serve_launches, serve_errs,
-            host_launches)
+            host_launches, quant)
 
 
 def save_ab(seed: int, smi: str, cfg, steps: int = 30):
@@ -1142,7 +1178,7 @@ def save_ab(seed: int, smi: str, cfg, steps: int = 30):
 
 def cli_sweep(seed: int, state, folder: str, scratch: str, pairs: int = 40):
     """The train-then-sweep round trip on the folder the training CLI
-    wrote; -> the sweep's launch counts."""
+    wrote; -> (the sweep's launch counts, its rows)."""
     import pickle
 
     from msml_torch.cli import test as cli_test
@@ -1170,9 +1206,9 @@ def cli_sweep(seed: int, state, folder: str, scratch: str, pairs: int = 40):
     torch.cuda.synchronize()
     launches = read_launches()
     batches = (1 + 9 * 10) * 2  # 10 repeats at 9 ratios, 2 flips
-    want_launches = {"augment_batch": batches,
-                     "prelu_fwd": batches * PRELU_SITES, "prelu_bwd": 0,
-                     "conv3x3_fwd": batches * CONV_SITES, "conv3x3_dw": 0}
+    want_launches = expect(augment_batch=batches,
+                           prelu_fwd=batches * PRELU_SITES,
+                           conv3x3_fwd=batches * CONV_SITES)
     if len(rows) != 10 or launches != want_launches or not all(
             math.isfinite(r["avg_acc"]) for r in rows):
         fail(f"cli sweep: {len(rows)} rows, launches {launches}")
@@ -1182,7 +1218,7 @@ def cli_sweep(seed: int, state, folder: str, scratch: str, pairs: int = 40):
           f"(max abs diff {(got - want).abs().max().item():.3g}); avg_acc "
           + ", ".join(f"{r['lo']}%: {r['avg_acc']:.4f}" for r in rows)
           + f"; launches {launches}")
-    return launches
+    return launches, rows
 
 
 HOST_PAIRS = 200        # the host sweep's .bin on the card
@@ -1373,9 +1409,8 @@ def cli_host_sweep(seed: int, folder: str, scratch: str, smi: str,
     small = pair_bin(os.path.join(scratch, "ref.bin"), seed, REF_PAIRS)
     common = ["--fill_type", "black", "--repeats", "1"]
     forwards = 2 * 10 * math.ceil(2 * HOST_PAIRS / HOST_BATCH)
-    want = {"augment_batch": 0, "prelu_fwd": forwards * PRELU_SITES,
-            "prelu_bwd": 0, "conv3x3_fwd": forwards * CONV_SITES,
-            "conv3x3_dw": 0}
+    want = expect(prelu_fwd=forwards * PRELU_SITES,
+                  conv3x3_fwd=forwards * CONV_SITES)
     launches = {}
     for protocol in ("BB", "NB"):
         rows, launches[protocol], s = host_sweep(
@@ -1415,7 +1450,9 @@ def cli_host_sweep(seed: int, folder: str, scratch: str, smi: str,
     tf32 = (torch.backends.cudnn.allow_tf32,
             torch.backends.cuda.matmul.allow_tf32)
     card_bb = None
-    for protocol in ("BB", "NB"):
+    # protocol BB without occlusion: the CPU's float32 forward is what
+    # takes the time
+    for protocol in ("BB",):
         got = {}
         for where, argv in (
                 ("bf16", ["--weight_folder", folder, "--device", "cuda"]),
@@ -1427,7 +1464,7 @@ def cli_host_sweep(seed: int, folder: str, scratch: str, smi: str,
                 torch.backends.cuda.matmul.allow_tf32 = False
             try:
                 rows, _, s = host_sweep(argv + [
-                    "--bin", small, "--protocol", protocol,
+                    "--bin", small, "--protocol", protocol, "--no-occ",
                     "--save-features", feats] + common)
             finally:
                 torch.backends.cudnn.allow_tf32, \
@@ -1437,7 +1474,7 @@ def cli_host_sweep(seed: int, folder: str, scratch: str, smi: str,
         cos, apart = {}, {}
         for where in ("bf16", "f32"):
             rows, feats, _ = got[where]
-            if feats.keys() != ref_feats.keys() or len(feats) != 10:
+            if feats.keys() != ref_feats.keys() or len(feats) != 1:
                 fail(f"host sweep {protocol} {where}: feature files "
                      f"{sorted(feats)} vs {sorted(ref_feats)}")
             cos[where] = min(cosines(torch.from_numpy(feats[n]),
@@ -1452,7 +1489,8 @@ def cli_host_sweep(seed: int, folder: str, scratch: str, smi: str,
                  f"{CPU_MIN_COS}), rows apart by {apart} pairs (f32 <= 1)")
         if protocol == "BB":
             card_bb = got["bf16"][:2]
-        print(f"[10 host sweep] protocol {protocol}, {REF_PAIRS} pairs, the "
+        print(f"[10 host sweep] protocol {protocol} without occlusion, "
+              f"{REF_PAIRS} pairs, the "
               f"port on the CPU in float32 ({cpu_s:.1f} s) vs the card, same "
               f"seed: bf16 ({got['bf16'][2]:.1f} s) min feature cosine "
               f"{cos['bf16']:.6f} (>= {BF16_MIN_COS}), rows up to "
@@ -2004,9 +2042,8 @@ def cli_serve(seed: int, folder: str, scratch: str, smi: str):
             base + "/metrics").decode().splitlines()
             if line and not line.startswith("#"))
         single_sizes = sizes[2:]
-        want = {"augment_batch": 0, "prelu_fwd": served * PRELU_SITES,
-                "prelu_bwd": 0, "conv3x3_fwd": served * CONV_SITES,
-                "conv3x3_dw": 0}
+        want = expect(prelu_fwd=served * PRELU_SITES,
+                      conv3x3_fwd=served * CONV_SITES)
         if launches != want or sizes[:2] != [32, 5]:
             fail(f"serve: launches {launches} over {served} forwards, "
                  f"expected {want}; batch sizes {sizes}")
@@ -2075,9 +2112,8 @@ def cli_serve(seed: int, folder: str, scratch: str, smi: str):
         stop_server(httpd, batcher)
     artifact_answer = np.asarray(out["embeddings"])
     cos_art = float(np.min(np.sum(artifact_answer * batch_answer, axis=1)))
-    want = {"augment_batch": 0, "prelu_fwd": len(aforwards) * PRELU_SITES,
-            "prelu_bwd": 0, "conv3x3_fwd": len(aforwards) * CONV_SITES,
-            "conv3x3_dw": 0}
+    want = expect(prelu_fwd=len(aforwards) * PRELU_SITES,
+                  conv3x3_fwd=len(aforwards) * CONV_SITES)
     if alaunches != want or not cos_art >= ARTIFACT_MIN_COS:
         fail(f"serve --artifact: launches {alaunches} over {len(aforwards)} "
              f"forwards, expected {want}; min cosine to the weight-folder "
@@ -2116,6 +2152,431 @@ def cli_serve(seed: int, folder: str, scratch: str, smi: str):
     return launches, errs
 
 
+QUANT_MIN_COS = 0.998   # int8 vs float bf16 features: JAX's bound, the min
+                        # over its images at random init
+                        # (tests/test_quantize.py), held as the min over
+                        # phase 3's 512 random-init images
+QUANT_MEAN_COS = 0.998  # the trained folder's int8 copy: the mean over 512
+QUANT_FLOOR_COS = 0.995  # ... and each image's: under the min that the
+                         # trained folder gave on the H100 (0.997483, the
+                         # same in three runs), which is below JAX's bound
+QUANT_CHECK_B = 8       # kernels vs plain at every distinct int8 geometry
+QUANT_SITES = 90        # arc18_msml's int8 sites: 89 convs and the fc
+INT8_OPS = 1979e12      # dense int8 tensor-core peak (operations / s)
+
+
+def quant_sites_of(qmodel, x) -> dict:
+    """The int8 sites that qmodel's forward on x reaches, grouped by their
+    geometry: {(kind, input shape less the batch, qconv geometry, dtype,
+    bias): [(name, module, the first site's input)] + the other names}."""
+    from msml_torch.core.quantize import QuantConv
+
+    sites, handles = {}, []
+    for name, m in qmodel.named_modules():
+        if not isinstance(m, QuantConv):
+            continue
+
+        def hook(mod, args, name=name):
+            xin = args[0]
+            hw = (1, 1) if xin.dim() == 2 else tuple(xin.shape[2:])
+            key = (mod.kind, tuple(xin.shape[1:]), tuple(mod.geometry(*hw)),
+                   mod.dtype, mod.bias is not None)
+            sites.setdefault(key, []).append((name, mod, xin))
+        handles.append(m.register_forward_pre_hook(hook))
+    try:
+        with torch.inference_mode():
+            qmodel(x)
+    finally:
+        for h in handles:
+            h.remove()
+    return sites
+
+
+def check_quant_site(m, xin) -> float:
+    """`quant_act` and `qconv_int8` against their plain versions on one
+    site's input, bit for bit; -> the max abs difference (0)."""
+    from msml_torch.kernels import qconv
+
+    x = xin.to(m.dtype)
+    xq, sx = qconv.quant_act(x, m.cp)
+    rq, rs = qconv.quant_act_reference(x, m.cp)
+    hw = (1, 1) if x.dim() == 2 else x.shape[2:]
+    geo = m.geometry(*hw)
+    y = qconv.qconv_int8(xq, m.wp, sx, m.sw, m.bias, geo, m.dtype)
+    ref = qconv.qconv_reference(rq, m.wp, rs, m.sw, m.bias, geo, m.dtype)
+    if not (torch.equal(xq, rq) and torch.equal(sx, rs)
+            and torch.equal(y, ref)):
+        fail(f"quant: {m} at input {tuple(x.shape)} {x.dtype}: codes equal "
+             f"{torch.equal(xq, rq)}, scales equal {torch.equal(sx, rs)}, "
+             f"outputs max abs diff "
+             f"{(y.float() - ref.float()).abs().max().item()}")
+    return (y.float() - ref.float()).abs().max().item()
+
+
+def valid_taps(size: int, k: int, stride: int, pad: int, dil: int,
+               out: int) -> int:
+    """(output position, tap) pairs along one axis that land on an input
+    element (not padding, not a dilation hole)."""
+    v = np.arange(out)[:, None] * stride - pad + np.arange(k)[None, :]
+    return int(((v >= 0) & (v % dil == 0) & (v // dil < size)).sum())
+
+
+def quant_bounds(n: int, shape, geo, co: int, out_bytes: int):
+    """(qconv bound ms, bound_by, quant_act bound ms, operations) of one
+    int8 site at
+    batch n: the operations that its data needs (2 per real
+    multiply-add: no padding, no dilation holes) at the int8 peak, against
+    each input read once and each output written once at the memory rate."""
+    from msml_torch.kernels import qconv
+
+    ci, h, w = (shape[0], 1, 1) if len(shape) == 1 else shape
+    kh, kw, sh, sw, ph, pw, dh, dw, ho, wo = geo
+    cp = qconv.padded_channels(ci)
+    ops = 2 * n * co * ci * valid_taps(h, kh, sh, ph, dh, ho) \
+        * valid_taps(w, kw, sw, pw, dw, wo)
+    xq = n * h * w * cp
+    nbytes = xq + -(-co // 64) * 64 * kh * kw * cp + n * co * ho * wo \
+        * out_bytes + 4 * (n + 2 * co)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT8_OPS
+    act = (n * ci * h * w * out_bytes + xq + 4 * n) / HBM_BYTES_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", act * 1e3, ops)
+
+
+def cudnn_call(m, x, generator):
+    """The float op of the int8 site `m` as one bf16 cuDNN / cuBLAS call on
+    x (random weights of its shape)."""
+    import torch.nn.functional as F
+
+    co = m.sw.shape[0]
+    kh, kw = m.kernel
+    if m.kind == "linear":
+        w = torch.randn((co, x.shape[1]), generator=generator, device="cuda",
+                        dtype=x.dtype)
+        return lambda: F.linear(x, w)
+    ci = x.shape[1]
+    if m.kind == "transposed":
+        w = torch.randn((ci, co, kh, kw), generator=generator, device="cuda",
+                        dtype=x.dtype)
+        return lambda: F.conv_transpose2d(
+            x, w, stride=m.dil, padding=(kh - 1 - m.pad[0], kw - 1 - m.pad[1]))
+    w = torch.randn((co, ci, kh, kw), generator=generator, device="cuda",
+                    dtype=x.dtype)
+    return lambda: F.conv2d(x, w, stride=m.stride, padding=m.pad)
+
+
+def time_quant_sites(sites: dict, smi: str, seed: int) -> list:
+    """Each distinct int8 geometry at B = 512 on random inputs of its
+    shape: `quant_act` and `qconv_int8` bit-equal to their plain versions,
+    then timed beside their bounds and the bf16 cuDNN op of the same shape;
+    -> one dict a geometry."""
+    from msml_torch.kernels import qconv
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+    rows = []
+    for key, found in sites.items():
+        kind, shape, geo, dtype, _ = key
+        name, m, _ = found[0]
+        xs = [torch.randn((B,) + shape, generator=gen, device="cuda",
+                          dtype=dtype) for _ in range(2)]
+        err = check_quant_site(m, xs[0])
+        qs = [qconv.quant_act(x, m.cp) for x in xs]
+        co = m.sw.shape[0]
+        act_ms = time_graph_ms([lambda x=x: qconv.quant_act(x, m.cp)
+                                for x in xs], windows=3)
+        conv_ms = time_graph_ms([lambda q=q: qconv.qconv_int8(
+            q[0], m.wp, q[1], m.sw, m.bias, list(geo), dtype) for q in qs],
+            windows=3)
+        cudnn_ms = time_graph_ms([cudnn_call(m, x.to(torch.bfloat16), gen)
+                                  for x in xs], windows=3)
+        x = xs[0]
+        bound, by, act_bound, ops = quant_bounds(B, shape, geo, co,
+                                                 x.element_size())
+        rows.append({"site": name, "sites": len(found), "kind": kind,
+                     "input": list(shape), "out_channels": co,
+                     "geometry": list(geo), "dtype": str(dtype)[6:],
+                     "int8_ops": ops, "max_abs_err": err,
+                     "qconv_ms": conv_ms, "qconv_bound_ms": bound,
+                     "bound_by": by, "quant_act_ms": act_ms,
+                     "quant_act_bound_ms": act_bound, "cudnn_bf16_ms": cudnn_ms})
+        del x, xs, qs
+    torch.cuda.empty_cache()
+    print(f"[11 quant] {smi}: each distinct int8 geometry at B = {B}: "
+          "quant_act and qconv_int8 bit-equal to their plain versions on "
+          "random inputs; device time from CUDA graphs of the calls (kernel "
+          "ms / bound ms / cuDNN bf16 ms of the same shape):")
+    for r in rows:
+        print(f"[11 quant]   {r['site']} (x{r['sites']}) {r['kind']} "
+              f"{r['input']} -> {r['out_channels']} {r['geometry'][:8]}: "
+              f"qconv_int8 {r['qconv_ms']:.4f} / {r['qconv_bound_ms']:.4f} "
+              f"({r['bound_by']}); quant_act {r['quant_act_ms']:.4f} / "
+              f"{r['quant_act_bound_ms']:.4f}; cuDNN bf16 "
+              f"{r['cudnn_bf16_ms']:.4f}")
+    total = {k: sum(r[k] * r["sites"] for r in rows) for k in (
+        "qconv_ms", "qconv_bound_ms", "quant_act_ms", "quant_act_bound_ms",
+        "cudnn_bf16_ms")}
+    print(f"[11 quant]   summed over the {sum(r['sites'] for r in rows)} "
+          f"sites: qconv_int8 {total['qconv_ms']:.4f} / "
+          f"{total['qconv_bound_ms']:.4f}; quant_act "
+          f"{total['quant_act_ms']:.4f} / {total['quant_act_bound_ms']:.4f}; "
+          f"cuDNN bf16 {total['cudnn_bf16_ms']:.4f}")
+    return rows
+
+
+def once_ms(fn) -> float:
+    """One call's time by CUDA events, after one warm-up call (for the
+    plain versions, whose calls take seconds at B = 512)."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def quant_entries(sites: dict, rows: list, errs: dict, seed: int) -> list:
+    """The kernels line's qconv_int8 and quant_act entries, at the site of
+    the most int8 operations at B = 512: kernel, plain version (float64
+    F.conv2d without cuDNN; float32 torch ops), bound; no PyTorch call
+    computes either (cuDNN's bf16 op of the same shape is beside them)."""
+    from msml_torch.kernels import qconv
+
+    top = max(rows, key=lambda r: r["int8_ops"])
+    key = next(k for k, f in sites.items() if f[0][0] == top["site"])
+    _, m, _ = sites[key][0]
+    geo, dtype = list(key[2]), key[3]
+    gen = torch.Generator(device="cuda").manual_seed(seed + 12)
+    x = torch.randn((B,) + key[1], generator=gen, device="cuda", dtype=dtype)
+    xq, sx = qconv.quant_act(x, m.cp)
+    plain_act = once_ms(lambda: qconv.quant_act_reference(x, m.cp))
+    plain_conv = once_ms(lambda: qconv.qconv_reference(
+        xq, m.wp, sx, m.sw, m.bias, geo, dtype))
+    at = f"{top['site']}, {list(key[1])} -> {m.sw.shape[0]}, B = {B}"
+    common = {"route": "cuda", "source": "msml_torch/csrc/qconv_int8.cu",
+              "replaces": "msml_tpu/core/quantize.py:141 (int8 "
+                          "conv_general_dilated / dot_general, lowered by "
+                          "XLA: no Pallas kernel)",
+              "library_ms": None, "at": at}
+    del x, xq, sx
+    torch.cuda.empty_cache()
+    return [
+        {"name": "qconv_int8", **common, "max_abs_err": errs["qconv_int8"],
+         "ms": top["qconv_ms"], "plain_ms": plain_conv,
+         "bound_ms": top["qconv_bound_ms"], "bound_by": top["bound_by"],
+         "cudnn_bf16_ms": top["cudnn_bf16_ms"], "geometries": rows},
+        {"name": "quant_act", **common, "max_abs_err": errs["quant_act"],
+         "ms": top["quant_act_ms"], "plain_ms": plain_act,
+         "bound_ms": top["quant_act_bound_ms"], "bound_by": "bytes"}]
+
+
+def quant_random_init(seed: int, smi: str, model):
+    """JAX's setting for its cosine bound (tests/test_quantize.py: random
+    init, the min over the images): phase 3's model and images at B = 512,
+    its int8 copy against its bf16 forward."""
+    from msml_torch.core.quantize import quantize_eval_model
+    from msml_torch.kernels.augment import augment_batch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)  # phase 3's
+    raw = torch.rand((B, H, W, 3), generator=gen, device="cuda")
+    x = augment_batch(raw, torch.rand((B, 6), generator=gen, device="cuda"))
+    t0 = time.perf_counter()
+    qmodel = quantize_eval_model(model, (H, W, 3))
+    quantize_s = time.perf_counter() - t0
+    with torch.inference_mode():
+        per_image = cosines(qmodel(x)[0], model(x)[0])
+    cos_min = per_image.min().item()
+    if not cos_min >= QUANT_MIN_COS:
+        fail(f"quant at random init: min feature cosine {cos_min} to the "
+             f"bf16 forward (>= {QUANT_MIN_COS})")
+    print(f"[11 quant] {smi}: phase 3's random-init model, its int8 copy "
+          f"(made in {quantize_s:.1f} s) against its bf16 forward, B = {B}: "
+          f"feature cosine min {cos_min:.6f} (>= {QUANT_MIN_COS}, JAX's "
+          f"bound), mean {per_image.mean().item():.6f}")
+    del qmodel, x, raw
+    torch.cuda.empty_cache()
+
+
+def cli_quant(seed: int, folder: str, scratch: str, smi: str,
+              float_rows: list):
+    """Phase 11: int8 post-training quantization on the folder the
+    training CLI wrote; -> (kernels line entries, the quantized forward's
+    launches (this slice's path), the quantized device sweep's launches,
+    the served folder's launches)."""
+    from msml_torch.cli import serve
+    from msml_torch.cli import test as cli_test
+    from msml_torch.core.quantize import quantize_eval_model
+    from msml_torch.core.weight_folder import load_weight_folder
+    from msml_torch.eval.folder_eval import tensorize_folder_img
+    from msml_torch.kernels import qconv
+    from msml_torch.kernels.augment import augment_batch
+    from msml_torch.tools import export_serving
+
+    t_phase = time.perf_counter()
+    _, model = load_weight_folder(folder, device="cuda")  # bf16 policy
+    gen = torch.Generator(device="cuda").manual_seed(seed + 10)
+    x = augment_batch(torch.rand((B, H, W, 3), generator=gen, device="cuda"),
+                      torch.rand((B, 6), generator=gen, device="cuda"))
+    qmodel = quantize_eval_model(model, (H, W, 3))
+
+    # (b) every distinct int8 geometry at B = 8, one odd shape one element
+    # off, and the fc at B = 512: the kernels bit-equal to the plain ones
+    sites = quant_sites_of(qmodel, x[:QUANT_CHECK_B])
+    if sum(len(f) for f in sites.values()) != QUANT_SITES:
+        fail(f"quant: {sum(len(f) for f in sites.values())} int8 sites, "
+             f"expected {QUANT_SITES}")
+    err = max(check_quant_site(f[0][1], f[0][2]) for f in sites.values())
+    odd = next(f[0][1] for k, f in sites.items() if k[0] == "conv"
+               and k[2][:2] == (7, 1) and k[1][0] == 18)
+    xo = offset_copy(torch.randn((3, 18, 13, 11), generator=gen,
+                                 device="cuda", dtype=odd.dtype), 1)
+    err = max(err, check_quant_site(odd, xo))
+    fc_in = {}
+    fc = next(f[0][1] for k, f in sites.items() if k[0] == "linear")
+    hook = fc.register_forward_pre_hook(
+        lambda mod, args: fc_in.setdefault("x", args[0]))
+
+    # (c) the quantized eval forward at B = 512 against the float one: this
+    # slice's path, its launches counted alone
+    with torch.inference_mode():
+        want = model(x)[0]
+        torch.cuda.synchronize()
+        reset_launches()
+        got = qmodel(x)[0]
+        torch.cuda.synchronize()
+        launches = read_launches()
+    hook.remove()
+    err = max(err, check_quant_site(fc, fc_in.pop("x")))
+    errs = {"qconv_int8": err, "quant_act": err}
+    want_launches = expect(prelu_fwd=PRELU_SITES, quant_act=QUANT_SITES,
+                           qconv_int8=QUANT_SITES)
+    per_image = cosines(got, want)
+    cos, cos_min = per_image.mean().item(), per_image.min().item()
+    if (launches != want_launches or got.shape != (B, 512)
+            or not torch.isfinite(got).all() or not cos >= QUANT_MEAN_COS
+            or not cos_min >= QUANT_FLOOR_COS):
+        fail(f"quant forward: launches {launches} (expected "
+             f"{want_launches}), shape {tuple(got.shape)}, feature cosine "
+             f"to the float bf16 forward mean {cos} (>= {QUANT_MEAN_COS}), "
+             f"min {cos_min} (>= {QUANT_FLOOR_COS})")
+    print(f"[11 quant] {smi}: the trained folder's int8 copy, "
+          f"{QUANT_SITES} int8 sites in {len(sites)} distinct geometries: "
+          f"quant_act and qconv_int8 bit-equal to their plain versions at "
+          f"each (B = {QUANT_CHECK_B}), at a 7 x 1 conv on (3, 18, 13, 11) "
+          f"one element off, and at the fc at B = {B}; B = {B} forward: "
+          f"feature cosine to the float bf16 forward mean {cos:.6f} (>= "
+          f"{QUANT_MEAN_COS}), median {per_image.median().item():.6f}, 1st "
+          f"percentile {per_image.quantile(0.01).item():.6f}, min "
+          f"{cos_min:.6f} (>= {QUANT_FLOOR_COS}); launches {launches}")
+
+    # (d) a row's features do not depend on its batch-mates
+    with torch.inference_mode():
+        padded = qmodel(torch.cat([x[:8], torch.zeros_like(x[8:])]))[0]
+    if not torch.equal(padded[:8], got[:8]):
+        fail("quant: rows in a zero-padded batch differ from the same rows "
+             "among other images: max abs diff "
+             f"{(padded[:8] - got[:8]).abs().max().item()}")
+    print(f"[11 quant] 8 rows among {B - 8} zero rows and among {B - 8} "
+          "other images: bit-equal features")
+
+    # (g) the forward's img/s, and each geometry's time
+    with torch.inference_mode():
+        ms_q = time_ms(lambda: qmodel(x), windows=3, per_window=5)
+        ms_f = time_ms(lambda: model(x), windows=3, per_window=5)
+    print(f"[11 quant] {smi}: B = {B} eval forward int8 {ms_q:.2f} ms = "
+          f"{B / ms_q * 1e3:.1f} img/s; bf16 {ms_f:.2f} ms = "
+          f"{B / ms_f * 1e3:.1f} img/s (the trained folder, same call)")
+    rows = time_quant_sites(sites, smi, seed)
+    errs = dict.fromkeys(errs, max([err] + [r["max_abs_err"] for r in rows]))
+    entries = quant_entries(sites, rows, errs, seed)
+    entries[0]["img_s"] = {"int8": B / ms_q * 1e3, "bf16": B / ms_f * 1e3}
+    del qmodel, model, got, want, padded, sites
+    torch.cuda.empty_cache()
+
+    # (e) export --quant int8, serve the artifact and the folder
+    imgs = np.stack([tensorize_folder_img(a) for a in np.random.RandomState(
+        seed + 13).randint(0, 256, (32, H, W, 3)).astype(np.uint8)])
+    artifact = os.path.join(scratch, "int8.pt2")
+    t0 = time.perf_counter()
+    export_serving.main(export_serving.parse_args(
+        ["--weight_folder", folder, "--out", artifact, "--device", "cuda",
+         "--quant", "int8"]))
+    export_s = time.perf_counter() - t0
+    with open(artifact + ".json") as f:
+        sidecar = json.load(f)
+    float_bytes = os.path.getsize(os.path.join(scratch, "model.pt2"))
+    answers, served = {}, {}
+    for what, runner in (
+            ("folder", serve.runner_from_weight_folder(folder, "cuda",
+                                                       quant="int8")),
+            ("artifact", serve.runner_from_artifact(artifact, "cuda"))):
+        forwards = count_forwards(runner)
+        base, httpd, batcher, _ = start_server(runner)
+        try:
+            health = json.loads(get(base + "/healthz"))
+            forwards.clear()
+            reset_launches()
+            _, out = post(base + "/embed_batch", npy_bytes(imgs))
+            torch.cuda.synchronize()
+            served[what] = (read_launches(), len(forwards))
+        finally:
+            stop_server(httpd, batcher)
+        answers[what] = np.asarray(out["embeddings"])
+        if health.get("quant") != "int8":
+            fail(f"quant serve {what}: /healthz {health}")
+        if what == "folder":
+            direct = runner.infer(imgs)
+    for what, (got_l, n_fwd) in served.items():
+        if got_l != expect(prelu_fwd=n_fwd * PRELU_SITES,
+                           quant_act=n_fwd * QUANT_SITES,
+                           qconv_int8=n_fwd * QUANT_SITES):
+            fail(f"quant serve {what}: launches {got_l} over {n_fwd} "
+                 "forwards")
+    cos_http = float(np.min(np.sum(answers["folder"] * direct, axis=1)))
+    cos_art = float(np.min(np.sum(answers["artifact"] * answers["folder"],
+                                  axis=1)))
+    if (sidecar.get("quant") != "int8" or not cos_http >= ARTIFACT_MIN_COS
+            or not cos_art >= ARTIFACT_MIN_COS):
+        fail(f"quant serve: sidecar {sidecar}, HTTP vs in-process min cosine "
+             f"{cos_http}, artifact vs folder {cos_art}")
+    print(f"[11 quant] {smi}: export_serving --quant int8 wrote "
+          f"{os.path.getsize(artifact)} bytes in {export_s:.1f} s (the float "
+          f"artifact {float_bytes} bytes); cli.serve --quant int8 on the "
+          f"folder, /embed_batch of 32 over HTTP against runner.infer in the "
+          f"process: min cosine {cos_http:.8f}, max abs diff "
+          f"{np.abs(answers['folder'] - direct).max():.3g}; the artifact "
+          f"server against it: min cosine {cos_art:.8f}; launches "
+          f"{served['folder'][0]} / {served['artifact'][0]} over "
+          f"{served['folder'][1]} / {served['artifact'][1]} forwards")
+
+    # (f) cli.test --quant int8 --device-sweep on phase 6's 40 pairs
+    bin_path = os.path.join(scratch, "pairs.bin")
+    reset_launches()
+    t0 = time.perf_counter()
+    qrows = cli_test.main(cli_test.parse_args(
+        ["--device-sweep", "--quant", "int8", "--weight_folder", folder,
+         "--bin", bin_path, "--device", "cuda"]))
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    sweep_launches = read_launches()
+    batches = (1 + 9 * 10) * 2  # and one float forward: the quantizer's trace
+    want_sweep = expect(augment_batch=batches,
+                        prelu_fwd=(batches + 1) * PRELU_SITES,
+                        conv3x3_fwd=CONV_SITES,
+                        quant_act=batches * QUANT_SITES,
+                        qconv_int8=batches * QUANT_SITES)
+    if (len(qrows) != 10 or sweep_launches != want_sweep
+            or not all(math.isfinite(r["avg_acc"]) for r in qrows)):
+        fail(f"quant sweep: {len(qrows)} rows, launches {sweep_launches}")
+    print(f"[11 quant] cli.test --device-sweep --quant int8 on the trained "
+          f"folder, 40 PPM pairs, {sweep_s:.1f} s: avg_acc int8 / bf16 "
+          + ", ".join(f"{q['lo']}%: {q['avg_acc']:.4f} / {r['avg_acc']:.4f}"
+                      for q, r in zip(qrows, float_rows))
+          + f"; launches {sweep_launches}; phase {time.perf_counter() - t_phase:.1f} s host clock")
+    return entries, launches, sweep_launches, served["folder"][0]
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -2123,6 +2584,7 @@ def main(argv=None):
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
 
+    t_run = time.perf_counter()
     smi = phase_device()
     phase_build()
     augment_entry = phase_kernel(args.seed)
@@ -2131,11 +2593,13 @@ def main(argv=None):
     conv_entries = phase_kernel_conv(args.seed)
     model, eval_img_s = phase_model(args.seed)
     sweep_launches = phase_sweep(args.seed, model)
+    quant_random_init(args.seed, smi, model)
     del model
     train_launches, train_img_s = phase_train(args.seed)
     phase_train_cpu_parity(args.seed)
     (cli_launches, cli_speeds, cli_sweep_launches, serve_launches,
-     serve_errs, host_launches) = phase_cli(args.seed, smi)
+     serve_errs, host_launches, quant) = phase_cli(args.seed, smi)
+    quant_entries, quant_launches, quant_sweep_launches, quant_serve = quant
     rec_launches = phase_data(args.seed, smi, cli_speeds)
 
     # this slice's path is the training CLI: its launches; the uint8 input
@@ -2146,9 +2610,15 @@ def main(argv=None):
     augment_entry.update(uint8)
     augment_entry["max_abs_err"] = max(augment_entry["max_abs_err"],
                                        uint8["max_abs_err"])
-    entries = [augment_entry] + prelu_entries + conv_entries
+    entries = [augment_entry] + prelu_entries + conv_entries + quant_entries
     for e in entries:
-        e["launches"] = cli_launches[e["name"]]
+        # the int8 kernels' path is phase 11's quantized forward; the
+        # others' the training CLI
+        e["launches"] = (quant_launches if e in quant_entries
+                         else cli_launches)[e["name"]]
+        e["launches_quant"] = quant_launches[e["name"]]
+        e["launches_cli_quant_sweep"] = quant_sweep_launches[e["name"]]
+        e["launches_serve_quant"] = quant_serve[e["name"]]
         e["launches_sweep"] = sweep_launches[e["name"]]
         e["launches_train_step"] = train_launches[e["name"]]
         e["launches_cli_sweep"] = cli_sweep_launches[e["name"]]
@@ -2157,8 +2627,12 @@ def main(argv=None):
         e["launches_cli_host_sweep"] = host_launches[e["name"]]
         e["max_abs_err"] = max(e["max_abs_err"],
                                serve_errs.get(e["name"], 0.0))
-    print(f"[7 summary] {smi}: CLI {cli_speeds[-1]:.1f} img/s (last Speed "
-          "line); "
+    img_s = quant_entries[0]["img_s"]
+    print(f"[7 summary] {smi}: the run in "
+          f"{time.perf_counter() - t_run:.1f} s host clock; CLI "
+          f"{cli_speeds[-1]:.1f} img/s (last Speed "
+          f"line); int8 eval forward {img_s['int8']:.1f} img/s (bf16 "
+          f"{img_s['bf16']:.1f}, same call) at B={B}; "
           f"train step {train_img_s:.1f} img/s bf16 at B={B_TRAIN}; eval "
           f"forward {eval_img_s:.1f} img/s at B={B}; "
           + "; ".join(f"{e['name']} {e['ms']:.4f} ms (bound "

@@ -25,12 +25,16 @@ API (all responses JSON unless noted):
                      -> {"embeddings": [[...], ...]}
 
 Features are flip-summed and l2-normalized by default (the eval
-protocols' convention); `--no-flip` / `--raw` opt out. Runs on `cuda`
-unless `--device cpu` is given. `--quant` and `--spatial` are not ported
+protocols' convention); `--no-flip` / `--raw` opt out. `--quant int8`
+serves a weight folder's int8 post-training quantization
+(`core/quantize.py`: the int8 kernels of `kernels/qconv.py`); an artifact
+is quantized when it is exported (`tools.export_serving --quant int8`).
+Runs on `cuda` unless `--device cpu` is given. `--spatial` is not ported
 yet.
 
 Usage:
   python -m msml_torch.cli.serve --weight_folder out/arc18_msml_1 --port 8000
+  python -m msml_torch.cli.serve --weight_folder out/arc18_msml_1 --quant int8
   python -m msml_torch.cli.serve --artifact model.pt2 --port 8000
 """
 
@@ -260,18 +264,27 @@ def numpy_forward(module, device: torch.device):
 
 
 def runner_from_weight_folder(weight_folder: str, device="cuda",
-                              **policy) -> ModelRunner:
+                              quant: str = "", **policy) -> ModelRunner:
+    """Serve a weight folder's eval forward; quant="int8" serves its int8
+    post-training quantization (`core/quantize.py::quantize_eval_model`),
+    made once here."""
     from msml_torch import resolve_device
     from msml_torch.core.weight_folder import load_weight_folder
     from msml_torch.tools.export_serving import EvalForward
 
     dev = resolve_device(device)
     cfg, model = load_weight_folder(weight_folder, device=dev)  # eval mode
+    if quant:
+        from msml_torch.core.quantize import quantize_eval_model
+        model = quantize_eval_model(model, (
+            cfg.out_size[1], cfg.out_size[0],
+            1 if cfg.get("is_gray", False) else 3), quant)
     return ModelRunner(
         numpy_forward(EvalForward(model), dev), cfg.out_size,
         cfg.get("is_gray", False), cfg.get("use_norm", True),
         meta={"source": weight_folder, "network": cfg.frb_type,
-              "dim": int(cfg.dim_feature)}, **policy)
+              "dim": int(cfg.dim_feature),
+              **({"quant": quant} if quant else {})}, **policy)
 
 
 def runner_from_artifact(path: str, device="cuda", **policy) -> ModelRunner:
@@ -295,7 +308,8 @@ def runner_from_artifact(path: str, device="cuda", **policy) -> ModelRunner:
     return ModelRunner(
         numpy_forward(program.module(), dev), (w, h), c == 1,
         meta.get("use_norm", True),
-        meta={"source": path, **{k: meta[k] for k in ("network", "dim")
+        meta={"source": path, **{k: meta[k] for k in ("network", "dim",
+                                                      "quant")
                                  if k in meta}}, **policy)
 
 
@@ -340,33 +354,36 @@ def make_handler(runner: ModelRunner, batcher: Batcher):
             return self.rfile.read(n)
 
         def do_POST(self):
+            # the request is counted before its reply is written, so a
+            # client that reads the reply and then GETs /metrics sees it
+            # counted; the latency is measured up to the write
             t0 = time.monotonic()
-            err = False
             try:
-                if self.path == "/embed":
-                    x = runner.preprocess_image(self._body())
-                    y = batcher.submit(x)
-                    self._send(200, {"embedding": y.tolist()})
-                elif self.path == "/embed_batch":
-                    arr = np.load(io.BytesIO(self._body()),
-                                  allow_pickle=False)
-                    want = runner.input_shape
-                    if arr.ndim != 4 or tuple(arr.shape[1:]) != want:
-                        raise ValueError(
-                            f"expected (B,{','.join(map(str, want))}), "
-                            f"got {arr.shape}")
-                    y = batcher.run_padded(arr.astype(np.float32))
-                    self._send(200, {"embeddings": y.tolist()})
-                else:
-                    err = True
-                    self._send(404, {"error": "unknown path"})
+                code, obj = 200, self._answer()
+                if obj is None:
+                    code, obj = 404, {"error": "unknown path"}
             except Exception as e:  # noqa: BLE001 - surface as 400
-                err = True
-                self._send(400, {"error": f"{type(e).__name__}: {e}"})
-            finally:
-                if batcher.metrics is not None:
-                    batcher.metrics.observe_request(time.monotonic() - t0,
-                                                    error=err)
+                code, obj = 400, {"error": f"{type(e).__name__}: {e}"}
+            if batcher.metrics is not None:
+                batcher.metrics.observe_request(time.monotonic() - t0,
+                                                error=code != 200)
+            self._send(code, obj)
+
+        def _answer(self):
+            """The reply to a POST to a known path, else None."""
+            if self.path == "/embed":
+                x = runner.preprocess_image(self._body())
+                return {"embedding": batcher.submit(x).tolist()}
+            if self.path == "/embed_batch":
+                arr = np.load(io.BytesIO(self._body()), allow_pickle=False)
+                want = runner.input_shape
+                if arr.ndim != 4 or tuple(arr.shape[1:]) != want:
+                    raise ValueError(
+                        f"expected (B,{','.join(map(str, want))}), "
+                        f"got {arr.shape}")
+                y = batcher.run_padded(arr.astype(np.float32))
+                return {"embeddings": y.tolist()}
+            return None
 
     return Handler
 
@@ -394,18 +411,19 @@ def warmup(runner: ModelRunner, max_batch: int):
 
 
 def main(args):
-    not_ported = [name for name, on in (
-        (f"--quant {args.quant}", bool(args.quant)),
-        (f"--spatial {args.spatial}", args.spatial > 1)) if on]
-    if not_ported:
-        raise SystemExit("not ported yet: " + ", ".join(not_ported))
+    if args.spatial > 1:
+        raise SystemExit(f"not ported yet: --spatial {args.spatial}")
 
     policy = {"flip": args.flip, "l2_norm": args.l2_norm}
     if args.artifact:
+        if args.quant:
+            raise SystemExit("--quant applies to --weight_folder serving; "
+                             "for artifacts, export with "
+                             "export_serving --quant int8 instead")
         runner = runner_from_artifact(args.artifact, args.device, **policy)
     else:
         runner = runner_from_weight_folder(args.weight_folder, args.device,
-                                           **policy)
+                                           quant=args.quant, **policy)
     if args.warmup:
         warmup(runner, args.max_batch)
 
@@ -443,7 +461,8 @@ def parse_args(argv=None):
     p.add_argument("--no-warmup", dest="warmup", action="store_false",
                    default=True)
     p.add_argument("--quant", default="", choices=["", "int8"],
-                   help="not ported yet")
+                   help="post-training int8 quantization of the served "
+                        "weight folder (core/quantize.py)")
     p.add_argument("--spatial", type=int, default=1, help="not ported yet")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     return p.parse_args(argv)

@@ -6,7 +6,7 @@ Counterpart of `msml_tpu/cli/test.py` (reference `test.py` ->
     python -m msml_torch.cli.test --weight_folder out/arc18_msml_1 \
         --dataset lfw --fill_type black [--protocol NB] [--repeats 10] \
         [--batch-size 25] [--save-features DIR] [--weight backbone.pth] \
-        [--no-occ] [--device cpu]
+        [--no-occ] [--quant int8] [--device cpu]
     python -m msml_torch.cli.test --device-sweep --weight_folder ...
 
 Loads `config.yaml` and the weights from the weight folder (the latest
@@ -18,8 +18,10 @@ on the host, protocol BB or NB, `--repeats` per nonzero ratio, the model's
 eval forward on the device in batches of `--batch-size`. `--device-sweep`
 runs protocol BB with block occlusion + normalize fused in the port's
 kernel (`eval/occ_sweep_device.py`), drawing its gauss fill differently
-from PIL. Runs on `cuda` unless `--device cpu` is given. The baseline
-networks, `--vis` and `--quant` are not ported yet.
+from PIL. `--quant int8` sweeps the int8 post-training quantization of
+the model (`core/quantize.py`) on either path. Runs on `cuda` unless
+`--device cpu` is given. The baseline networks and `--vis` are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ def main(args):
     device = resolve_device(args.device)
     not_ported = [name for name, on in (
         ("--network " + args.network, args.network != "msml"),
-        ("--vis", args.vis), ("--quant", bool(args.quant))) if on]
+        ("--vis", args.vis)) if on]
     if not_ported:
         raise SystemExit("not ported yet: " + ", ".join(not_ported))
     if not args.weight_folder:
@@ -50,6 +52,11 @@ def main(args):
 
     cfg, model = load_weight_folder(args.weight_folder, device=device,
                                     weight=args.weight or None)
+    if args.quant:
+        from msml_torch.core.quantize import quantize_eval_model
+        model = quantize_eval_model(model, (
+            cfg.out_size[1], cfg.out_size[0],
+            1 if cfg.get("is_gray", False) else 3), args.quant)
     bin_path = args.bin or os.path.join(cfg.rec, args.dataset + ".bin")
     use_norm = bool(cfg.get("use_norm", True))
     is_gray = bool(cfg.get("is_gray", False))
@@ -122,7 +129,9 @@ def parse_args(argv=None):
                    help="save flip-summed features per ratio/repeat as .npy "
                         "(qeval_mxnet.py:392-396 cache)")
     p.add_argument("--quant", type=str, default="", choices=["", "int8"],
-                   help="not ported yet")
+                   help="post-training int8 quantization of the eval "
+                        "forward (core/quantize.py); run against a "
+                        "non-quantized baseline to bound accuracy impact")
     p.add_argument("--device", type=str, default="cuda",
                    choices=["cuda", "cpu"])
     p.add_argument("--device-sweep", action="store_true",

@@ -9,6 +9,10 @@ The port's own numpy copy of `msml_tpu/eval/verification.py`. Parity target
     (verification.py:125-163)
   * evaluate — thresholds 0:4:0.01 for ROC, 0:4:0.001 for VAL@FAR=1e-3
     (verification.py:181-199)
+  * the ROC's and VAL's loops over thresholds count every threshold of a
+    fold at once, by sorting the fold's distances (`_below`): the loop's
+    values bit for bit, and its ZeroDivisionError where it divides by
+    zero, in a few ms where the loop took ~1 s a call at 40 pairs
   * test() — batched embedding extraction with orig + flip sum, the
     overlapping tail window (`_data = data[bb - batch_size: bb]`,
     verification.py:262, kept for parity), l2 normalize, xnorm
@@ -44,25 +48,40 @@ class LFold:
             current += fs
 
 
-def calculate_accuracy(threshold: float, dist: np.ndarray,
-                       actual_issame: np.ndarray):
-    """verification.py:110-122."""
-    predict = np.less(dist, threshold)
-    tp = np.sum(np.logical_and(predict, actual_issame))
-    fp = np.sum(np.logical_and(predict, np.logical_not(actual_issame)))
-    tn = np.sum(np.logical_and(np.logical_not(predict),
-                               np.logical_not(actual_issame)))
-    fn = np.sum(np.logical_and(np.logical_not(predict), actual_issame))
-    tpr = 0 if (tp + fn == 0) else float(tp) / float(tp + fn)
-    fpr = 0 if (fp + tn == 0) else float(fp) / float(fp + tn)
-    acc = float(tp + tn) / dist.size
-    return tpr, fpr, acc
+def _below(thresholds: np.ndarray, dist: np.ndarray,
+           actual_issame: np.ndarray):
+    """For every threshold t at once: the same pairs and the different pairs
+    with dist < t, as verification.py's `calculate_accuracy` and
+    `calculate_val_far` count them one t at a time (np.less, in the dtype
+    it computes in), by sorting the distances; -> (same below (T,),
+    different below (T,), same pairs, different pairs)."""
+    same = np.asarray(actual_issame, bool)
+    dtype = np.result_type(dist, thresholds[0])
+    d = np.asarray(dist).astype(dtype)
+    t = np.asarray(thresholds).astype(dtype)
+    return (np.searchsorted(np.sort(d[same]), t, side="left"),
+            np.searchsorted(np.sort(d[~same]), t, side="left"),
+            int(same.sum()), int((~same).sum()))
+
+
+def _accuracy_curve(thresholds: np.ndarray, dist: np.ndarray,
+                   actual_issame: np.ndarray):
+    """verification.py:110-122 (`calculate_accuracy`) at every threshold:
+    (tpr, fpr, acc) arrays."""
+    if dist.size == 0:  # as calculate_accuracy divides by it
+        raise ZeroDivisionError("float division by zero")
+    tp, fp, n_same, n_diff = _below(thresholds, dist, actual_issame)
+    fn, tn = n_same - tp, n_diff - fp
+    tpr = np.where(tp + fn == 0, 0.0, tp / np.maximum(tp + fn, 1))
+    fpr = np.where(fp + tn == 0, 0.0, fp / np.maximum(fp + tn, 1))
+    return tpr, fpr, (tp + tn) / dist.size
 
 
 def calculate_roc(thresholds: np.ndarray, embeddings1: np.ndarray,
                   embeddings2: np.ndarray, actual_issame: np.ndarray,
                   nrof_folds: int = 10):
-    """verification.py:54-107 (pca path omitted; unused by the protocols)."""
+    """verification.py:54-107 (pca path omitted; unused by the protocols),
+    every threshold of a fold at once (`_accuracy_curve`)."""
     if embeddings1.shape != embeddings2.shape:
         raise ValueError("embedding sets differ in shape")
     nrof_pairs = min(len(actual_issame), embeddings1.shape[0])
@@ -78,15 +97,12 @@ def calculate_roc(thresholds: np.ndarray, embeddings1: np.ndarray,
     dist = np.sum(np.square(diff), 1)
 
     for fold_idx, (train_set, test_set) in enumerate(k_fold.split(indices)):
-        acc_train = np.array([
-            calculate_accuracy(t, dist[train_set], actual_issame[train_set])[2]
-            for t in thresholds])
+        _, _, acc_train = _accuracy_curve(thresholds, dist[train_set],
+                                         actual_issame[train_set])
         best = np.argmax(acc_train)
-        for ti, t in enumerate(thresholds):
-            tprs[fold_idx, ti], fprs[fold_idx, ti], _ = calculate_accuracy(
-                t, dist[test_set], actual_issame[test_set])
-        _, _, accuracy[fold_idx] = calculate_accuracy(
-            thresholds[best], dist[test_set], actual_issame[test_set])
+        tprs[fold_idx], fprs[fold_idx], acc_test = _accuracy_curve(
+            thresholds, dist[test_set], actual_issame[test_set])
+        accuracy[fold_idx] = acc_test[best]
 
     return np.mean(tprs, 0), np.mean(fprs, 0), accuracy
 
@@ -109,7 +125,8 @@ def calculate_val(thresholds: np.ndarray, embeddings1: np.ndarray,
                   embeddings2: np.ndarray, actual_issame: np.ndarray,
                   far_target: float, nrof_folds: int = 10):
     """verification.py:125-163. slinear interp == piecewise linear on the
-    (sorted) far->threshold curve."""
+    (sorted) far->threshold curve; the train set's FAR at every threshold
+    at once (`_below`)."""
     nrof_pairs = min(len(actual_issame), embeddings1.shape[0])
     k_fold = LFold(n_splits=nrof_folds)
     val = np.zeros(nrof_folds)
@@ -119,9 +136,11 @@ def calculate_val(thresholds: np.ndarray, embeddings1: np.ndarray,
     indices = np.arange(nrof_pairs)
 
     for fold_idx, (train_set, test_set) in enumerate(k_fold.split(indices)):
-        far_train = np.array([
-            calculate_val_far(t, dist[train_set], actual_issame[train_set])[1]
-            for t in thresholds])
+        _, false_accept, n_same, n_diff = _below(
+            thresholds, dist[train_set], actual_issame[train_set])
+        if not (n_same and n_diff):  # as calculate_val_far divides by them
+            raise ZeroDivisionError("float division by zero")
+        far_train = false_accept / float(n_diff)
         if np.max(far_train) >= far_target:
             order = np.argsort(far_train)
             threshold = float(np.interp(far_target, far_train[order],

@@ -1,0 +1,376 @@
+"""int8 post-training quantization kernels for Hopper: the dynamic
+per-sample activation quantizer and the int8 implicit-GEMM convolution.
+
+No Pallas kernel of the JAX package has these as its counterpart: there
+`msml_tpu/core/quantize.py` rewrites each eligible `conv_general_dilated`
+and rank-2 `dot_general` of a traced forward to int8 and XLA lowers the
+int8 ops (`:141-177`). PyTorch has no int8 convolution on CUDA, so the
+port runs them here, as CUDA C++ for `sm_90a` (`csrc/qconv_int8.cu`):
+
+  quant_act(x, cp)        x (N, C, H, W) or (N, C) float32 / bfloat16 ->
+                          xq (N, H, W, cp) int8, channels last, channels
+                          >= C zero; sx (N,) float32. sx = max(amax *
+                          f32(1 / 127), 1e-12) with amax over each sample's
+                          non-batch elements; xq = clip(rint(x / sx), +-127)
+  qconv_int8(xq, wp, sx, sw, bias, geometry, out_dtype)
+                          y (N, Co, Ho, Wo) = float32(conv(xq, w)) * (sx[n]
+                          * sw[co]) in out_dtype (float32 or bfloat16), plus
+                          the bias (Co,) if one is given: wp is
+                          `pack_weight`'s layout
+  pack_weight(wq, cp)     int8 (Co, Ci, KH, KW) -> (Co rounded up to 64,
+                          KH * KW * cp), K ordered (ky, kx, ci)
+
+`geometry` is (kh, kw, stride_h, stride_w, pad_h, pad_w, dil_h, dil_w,
+out_h, out_w): the padding is that of the top and left of the input
+dilated by (dil_h, dil_w) (the lhs dilation of a transposed conv, as XLA
+lowers `lax.conv_transpose`), the bottom and right follow from the output
+size. A transposed conv's weight is `transposed_as_conv`'s first.
+
+The rounding is JAX's as its entry points run it (`jax.jit` of
+`quantize_fn` on the CPU): XLA compiles `amax / 127` into a multiply by
+the rounded reciprocal, and `x / sx` into an IEEE division, which the
+kernel does with `__fdiv_rn` (Triton's fp32 `/` and `--use_fast_math` are
+approximate and flip codes at ties), then `rintf`, half to even as
+`jnp.round`. A float32 output's bias add is contracted with the
+dequantizing multiply into one FMA, as XLA contracts flax's `y + bias`; a
+bfloat16 output is rounded first and the bias added in bfloat16. The sums
+are exact int32 on both sides, so the codes and the outputs are bit-equal
+to the reference's.
+
+Design:
+- `quant_act` is two launches, counted as one: a per-sample abs-max
+  (`atomicMax` on the float's bits, so the result does not depend on the
+  order the blocks run in), then a pass that quantizes tiles of 32
+  channels x 64 pixels, read along the pixels and written channels last
+  as 16-byte rows through shared memory (an elementwise pass for the fc's
+  (N, C) input, whose layout does not change). It is CUDA C++ rather than
+  Triton, as the route this port takes for every new kernel.
+- `qconv_int8`: a GEMM with M = Co, N = the batch's output pixels and K =
+  kh kw cp, K padded per tap (cp = C rounded up to 32), so that a K step
+  of 32 is one tap's 32 channels: one 32-byte row of xq, two aligned
+  16-byte `cp.async` with zero fill for padding, stride and dilation
+  holes. A block computes 64 channels x 128 pixels with 8 warps, each 32 x
+  32 as 2 x 4 `mma.sync.m16n8k32.s8.s8.s32`, over a ring of 4 stages; the
+  epilogue is `__int2float_rn(acc) * (sx[n] * sw[co])` in f32 (an FMA
+  with the bias for a float32 output, none otherwise), rounded to the
+  output dtype and stored NCHW with a predicate per element (Co = 18, the
+  pixel tail). The fc runs as a 1 x 1 conv on (N,
+  25088, 1, 1). Not yet: `wgmma`, TMA, split K for the fc's long K,
+  folding the quantize pass into the previous layer's epilogue.
+
+On a CPU tensor the wrappers run the plain versions, `quant_act_reference`
+and `qconv_reference` (F.conv2d on the int8 values as float64: every int32
+sum here is below 2^53, so it is exact); on a CUDA tensor they launch the
+kernel or raise. Both are custom ops (`msml_torch::quant_act`,
+`msml_torch::qconv_int8`, with fake implementations), so that an exported
+program (`tools/export_serving.py --quant int8`) runs the kernels.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from msml_torch.kernels import _nvcc
+
+QMAX = 127.0   # symmetric int8 range (msml_tpu/core/quantize.py:56)
+EPS = 1e-12    # floor of every scale (:59)
+# f32(1 / 127): what XLA multiplies by for the reference's `amax / 127`
+INV_QMAX = float(np.float32(1.0) / np.float32(QMAX))
+CP_ALIGN = 32  # channel padding of xq: one mma k32 step per tap
+BM = 64        # output channels of a kernel block: wp's rows are padded to it
+_OUT_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def padded_channels(c: int) -> int:
+    """Channels of xq for C input channels: C rounded up to 32."""
+    return -(-c // CP_ALIGN) * CP_ALIGN
+
+
+def conv_out_size(size: int, k: int, stride: int, pad_lo: int, pad_hi: int,
+                  dil: int = 1) -> int:
+    """Output length of a conv over an input of `size` dilated by `dil`."""
+    return ((size - 1) * dil + 1 + pad_lo + pad_hi - k) // stride + 1
+
+
+def _as_nchw(x: torch.Tensor) -> torch.Tensor:
+    if x.dim() == 2:
+        return x[:, :, None, None]
+    if x.dim() != 4:
+        raise ValueError(f"quant_act takes (N, C, H, W) or (N, C), not "
+                         f"{tuple(x.shape)}")
+    return x
+
+
+def act_scale_reference(x: torch.Tensor) -> torch.Tensor:
+    """sx (N,) float32 of x (N, ...): max(amax * f32(1/127), 1e-12)."""
+    amax = x.float().abs().flatten(1).amax(1)
+    return torch.clamp_min(amax * INV_QMAX, EPS)
+
+
+def quant_act_reference(x: torch.Tensor, cp: int):
+    """Plain `quant_act`: (xq (N, H, W, cp) int8, sx (N,) float32)."""
+    xf = _as_nchw(x).float()
+    sx = act_scale_reference(xf)
+    # a divisor tensor on x's device: torch divides by a CPU scalar as a
+    # multiply by its reciprocal on the card
+    q = torch.round(xf / sx[:, None, None, None]).clamp_(-QMAX, QMAX)
+    q = q.to(torch.int8).permute(0, 2, 3, 1)
+    return F.pad(q, (0, cp - q.shape[-1])).contiguous(), sx
+
+
+def quant_weight(w: torch.Tensor, out_axis: int = 0,
+                 reciprocal: bool = False):
+    """Symmetric per-output-channel int8 of w (`_quant_weight`, :85-108):
+    (wq int8, sw float32 (w.shape[out_axis],)), on the CPU. The scale is
+    amax / 127 by IEEE division, as the reference's numpy path computes it
+    for a weight it finds as a constant; `reciprocal` gives amax * f32(1 /
+    127), as XLA computes it where the reference's jitted forward casts the
+    weight first (a bf16 op on float32 parameters), which makes the weight
+    a traced value."""
+    wf = w.detach().to("cpu", torch.float32)
+    axes = [d for d in range(wf.dim()) if d != out_axis]
+    shape = [1] * wf.dim()
+    shape[out_axis] = -1
+    amax = wf.abs().amax(dim=axes)
+    sw = torch.clamp_min(amax * INV_QMAX if reciprocal else amax / QMAX, EPS)
+    wq = torch.round(wf / sw.view(shape)).clamp_(-QMAX, QMAX)
+    return wq.to(torch.int8), sw
+
+
+def transposed_as_conv(w: torch.Tensor) -> torch.Tensor:
+    """The conv weight (Co, Ci, KH, KW) of a transposed conv's (Ci, Co, KH,
+    KW): in and out swapped, each kernel rotated by 180 degrees
+    (`lax.conv_transpose(..., transpose_kernel=True)`)."""
+    return w.transpose(0, 1).flip(2, 3)
+
+
+def pack_weight(wq: torch.Tensor, cp: int) -> torch.Tensor:
+    """int8 (Co, Ci, KH, KW) -> (Co rounded up to 64, KH * KW * cp): row co
+    holds taps (ky, kx) in order, each the Ci codes then zeros to cp."""
+    co, ci, kh, kw = wq.shape
+    w = F.pad(wq.permute(0, 2, 3, 1), (0, cp - ci))
+    w = w.reshape(co, kh * kw * cp)
+    return F.pad(w, (0, 0, 0, -(-co // BM) * BM - co)).contiguous()
+
+
+def unpack_weight(wp: torch.Tensor, co: int, kh: int, kw: int
+                  ) -> torch.Tensor:
+    """`pack_weight`'s inverse up to the channel padding: (Co, cp, KH, KW)."""
+    return wp[:co].view(co, kh, kw, -1).permute(0, 3, 1, 2)
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
+            ) -> torch.Tensor:
+    """a * b + c for float32 tensors with one rounding, as `fmaf`. The
+    product of two float32 values is exact in float64; the float64 sum s
+    carries its error e (TwoSum), which decides the one case where
+    rounding s to float32 differs from rounding s + e: s on a midpoint of
+    the float32 grid."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    v = s - p
+    e = (p - (s - v)) + (c - v)
+    y = s.float()
+    toward = torch.where(s > y.double(), torch.inf, -torch.inf).float()
+    mid = (y.double() + torch.nextafter(y, toward).double()) / 2
+    nudged = torch.nextafter(s, torch.where(e > 0, torch.inf, -torch.inf)
+                             .double()).float()
+    return torch.where((s == mid) & (e != 0), nudged, y)
+
+
+def qconv_reference(xq: torch.Tensor, wp: torch.Tensor, sx: torch.Tensor,
+                    sw: torch.Tensor, bias: Optional[torch.Tensor],
+                    geometry: Sequence[int], out_dtype: torch.dtype
+                    ) -> torch.Tensor:
+    """Plain `qconv_int8`: the input dilated and padded explicitly, then
+    F.conv2d in float64 (exact), then the dequantization and the bias."""
+    kh, kw, sh, swd, ph, pw, dh, dw, ho, wo = geometry
+    n, h, w, _ = xq.shape
+    x = xq.permute(0, 3, 1, 2).double()
+    if dh > 1 or dw > 1:
+        xd = x.new_zeros(x.shape[:2] + ((h - 1) * dh + 1, (w - 1) * dw + 1))
+        xd[:, :, ::dh, ::dw] = x
+        x = xd
+    pb = (ho - 1) * sh + kh - x.shape[2] - ph
+    pr = (wo - 1) * swd + kw - x.shape[3] - pw
+    x = F.pad(x, (pw, pr, ph, pb))
+    weight = unpack_weight(wp, sw.shape[0], kh, kw).double()
+    # cuDNN's transform algorithms would round; the native conv is im2col
+    # and a float64 GEMM, exact on these integers
+    with torch.backends.cudnn.flags(enabled=False):
+        acc = F.conv2d(x, weight, stride=(sh, swd)).to(torch.float32)
+    scale = sx[:, None, None, None] * sw[None, :, None, None]
+    if bias is None:
+        return (acc * scale).to(out_dtype)
+    b = bias[None, :, None, None].expand_as(acc)
+    if out_dtype == torch.float32:
+        return fma_f32(acc, scale.expand_as(acc), b)
+    return ((acc * scale).to(out_dtype).float() + b).to(out_dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    lib = _nvcc.load("qconv_int8")
+    _nvcc.signature(lib.quant_act, pointers=4, ints=5)
+    _nvcc.signature(lib.qconv_int8, pointers=6, ints=16)
+    return lib
+
+
+def _device_of(x: torch.Tensor, what: str) -> str:
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    return x.device.type
+
+
+def quant_act(x: torch.Tensor, cp: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(xq, sx) of x (N, C, H, W) or (N, C): the CUDA kernel on the card,
+    the plain version on the CPU; cp = `padded_channels(C)`.
+
+    The custom op `torch.ops.msml_torch.quant_act`."""
+    _device_of(x, "quant_act")
+    return torch.ops.msml_torch.quant_act(x, cp)
+
+
+def _check_act(x: torch.Tensor, cp: int) -> None:
+    x = _as_nchw(x)
+    if not x.is_floating_point() or cp % CP_ALIGN or cp < x.shape[1]:
+        raise ValueError(f"quant_act: {x.dtype} input, {x.shape[1]} "
+                         f"channels padded to {cp}")
+
+
+@torch.library.custom_op("msml_torch::quant_act", mutates_args=(),
+                         device_types="cpu")
+def _quant_act_op(x: torch.Tensor, cp: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    _check_act(x, cp)
+    return quant_act_reference(x, cp)
+
+
+@_quant_act_op.register_kernel("cuda")
+def _quant_act_cuda(x: torch.Tensor, cp: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    _check_act(x, cp)
+    if x.dtype not in _OUT_DTYPES:
+        raise ValueError(f"quant_act: the kernel takes float32 or bfloat16, "
+                         f"not {x.dtype}")
+    x4 = _as_nchw(x).contiguous()
+    n, c, h, w = x4.shape
+    xq = torch.empty((n, h, w, cp), dtype=torch.int8, device=x.device)
+    sx = torch.empty((n,), dtype=torch.float32, device=x.device)
+    amax = torch.empty((n,), dtype=torch.int32, device=x.device)
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        err = lib.quant_act(x4.data_ptr(), xq.data_ptr(), sx.data_ptr(),
+                            amax.data_ptr(), n, c, h * w, cp,
+                            int(x.dtype == torch.bfloat16),
+                            torch.cuda.current_stream().cuda_stream)
+    _nvcc.check(lib, err, "quant_act")
+    quant_act.launches += 1
+    return xq, sx
+
+
+@_quant_act_op.register_fake
+def _quant_act_fake(x: torch.Tensor, cp: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    x4 = _as_nchw(x)
+    n, _, h, w = x4.shape
+    return (x.new_empty((n, h, w, cp), dtype=torch.int8),
+            x.new_empty((n,), dtype=torch.float32))
+
+
+def qconv_int8(xq: torch.Tensor, wp: torch.Tensor, sx: torch.Tensor,
+               sw: torch.Tensor, bias: Optional[torch.Tensor],
+               geometry: Sequence[int], out_dtype: torch.dtype
+               ) -> torch.Tensor:
+    """y (N, Co, Ho, Wo) in out_dtype: the CUDA kernel on the card, the
+    plain version on the CPU; bias float32 (Co,) or None. The custom op
+    `torch.ops.msml_torch.qconv_int8`."""
+    _device_of(xq, "qconv_int8")
+    return torch.ops.msml_torch.qconv_int8(xq, wp, sx, sw, bias,
+                                           list(geometry), out_dtype)
+
+
+def _check_conv(xq, wp, sx, sw, bias, geometry, out_dtype) -> None:
+    if len(geometry) != 10:
+        raise ValueError(f"qconv_int8: geometry {geometry}")
+    kh, kw, sh, swd, ph, pw, dh, dw, ho, wo = geometry
+    n, _, _, cp = xq.shape
+    co = sw.shape[0]
+    if (xq.dtype != torch.int8 or wp.dtype != torch.int8
+            or sx.dtype != torch.float32 or sw.dtype != torch.float32
+            or out_dtype not in _OUT_DTYPES):
+        raise ValueError(f"qconv_int8: dtypes {xq.dtype}, {wp.dtype}, "
+                         f"{sx.dtype}, {sw.dtype} -> {out_dtype}")
+    if (cp % CP_ALIGN or tuple(wp.shape) != (-(-co // BM) * BM,
+                                              kh * kw * cp)
+            or tuple(sx.shape) != (n,) or min(sh, swd, dh, dw, ho, wo) < 1
+            or min(ph, pw) < 0):
+        raise ValueError(f"qconv_int8: xq {tuple(xq.shape)}, wp "
+                         f"{tuple(wp.shape)}, sx {tuple(sx.shape)}, sw "
+                         f"{tuple(sw.shape)}, geometry {geometry}")
+    if bias is not None and (bias.dtype != torch.float32
+                             or tuple(bias.shape) != (co,)):
+        raise ValueError(f"qconv_int8: bias {bias.dtype} "
+                         f"{tuple(bias.shape)} for {co} channels")
+    devices = {t.device for t in (xq, wp, sx, sw, bias) if t is not None}
+    if len(devices) != 1:
+        raise ValueError(f"qconv_int8: tensors on {devices}")
+
+
+@torch.library.custom_op("msml_torch::qconv_int8", mutates_args=(),
+                         device_types="cpu")
+def _qconv_op(xq: torch.Tensor, wp: torch.Tensor, sx: torch.Tensor,
+              sw: torch.Tensor, bias: Optional[torch.Tensor],
+              geometry: Sequence[int], out_dtype: torch.dtype
+              ) -> torch.Tensor:
+    _check_conv(xq, wp, sx, sw, bias, geometry, out_dtype)
+    return qconv_reference(xq, wp, sx, sw, bias, geometry,
+                           out_dtype).contiguous()
+
+
+@_qconv_op.register_kernel("cuda")
+def _qconv_cuda(xq: torch.Tensor, wp: torch.Tensor, sx: torch.Tensor,
+                sw: torch.Tensor, bias: Optional[torch.Tensor],
+                geometry: Sequence[int], out_dtype: torch.dtype
+                ) -> torch.Tensor:
+    _check_conv(xq, wp, sx, sw, bias, geometry, out_dtype)
+    if not all(t.is_contiguous() for t in (xq, wp, sx, sw, bias)
+               if t is not None):
+        raise ValueError("qconv_int8: the kernel takes contiguous tensors")
+    if xq.data_ptr() % 16 or wp.data_ptr() % 16:
+        raise ValueError("qconv_int8: xq and wp must be 16-byte aligned")
+    kh, kw, sh, swd, ph, pw, dh, dw, ho, wo = geometry
+    n, h, w, cp = xq.shape
+    co = sw.shape[0]
+    y = torch.empty((n, co, ho, wo), dtype=out_dtype, device=xq.device)
+    lib = _lib()
+    with torch.cuda.device(xq.device):
+        err = lib.qconv_int8(xq.data_ptr(), wp.data_ptr(), sx.data_ptr(),
+                             sw.data_ptr(),
+                             None if bias is None else bias.data_ptr(),
+                             y.data_ptr(), n, h, w, cp, co,
+                             ho, wo, kh, kw, sh, swd, ph, pw, dh, dw,
+                             int(out_dtype == torch.bfloat16),
+                             torch.cuda.current_stream().cuda_stream)
+    _nvcc.check(lib, err, "qconv_int8")
+    qconv_int8.launches += 1
+    return y
+
+
+@_qconv_op.register_fake
+def _qconv_fake(xq: torch.Tensor, wp: torch.Tensor, sx: torch.Tensor,
+                sw: torch.Tensor, bias: Optional[torch.Tensor],
+                geometry: Sequence[int], out_dtype: torch.dtype
+                ) -> torch.Tensor:
+    return xq.new_empty((xq.shape[0], sw.shape[0], geometry[8],
+                         geometry[9]), dtype=out_dtype)
+
+
+quant_act.launches = 0  # kernel launches since the last reset
+qconv_int8.launches = 0

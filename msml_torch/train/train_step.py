@@ -129,3 +129,17 @@ def make_eval_step(model: torch.nn.Module) -> Callable[[np.ndarray],
         return feature.float().cpu().numpy()
 
     return extract
+
+
+def make_quantized_eval_step(model: torch.nn.Module, input_hwc,
+                             quant: str = "int8"
+                             ) -> Callable[[np.ndarray], np.ndarray]:
+    """`make_eval_step` over the int8 copy of `model` for (H, W, C) images
+    (`core/quantize.py::quantize_eval_model`): the PTQ eval forward of
+    `msml_tpu/train/train_step.py::make_quantized_eval_step`. Per-sample
+    activation scales make padded rows and re-batching bit-inert; `model`
+    itself is not changed. Modes other than int8 are refused with JAX's
+    message."""
+    from msml_torch.core.quantize import quantize_eval_model
+
+    return make_eval_step(quantize_eval_model(model, input_hwc, quant))

@@ -156,6 +156,46 @@ def test_verification_test_matches_jax(is_gray, use_norm, batch_size):
         np.testing.assert_array_equal(a, b)
 
 
+def _embeddings(case):
+    """(embeddings, issame) of a metric case: random unit features, or
+    squared distances on the thresholds' own 0.001 grid (ties)."""
+    n, dtype, issame = {"f64": (40, np.float64, "alternate"),
+                        "f32": (37, np.float32, "alternate"),
+                        "one_kind_fold": (40, np.float64, "halves"),
+                        "lfw_like": (600, np.float64, "alternate"),
+                        "ties": (120, np.float64, "alternate"),
+                        "ties_f32": (120, np.float32, "alternate"),
+                        "empty_fold": (9, np.float64, "alternate")}[case]
+    rng = np.random.RandomState(len(case))
+    if case.startswith("ties"):
+        emb = np.zeros((2 * n, 2))
+        emb[1::2, 0] = np.sqrt(rng.randint(0, 4000, n) / 1000.0)
+    else:
+        emb = ver.l2_normalize_np(rng.randn(2 * n, 16))
+    same = {"alternate": [p % 2 == 0 for p in range(n)],
+            "halves": [p < n // 2 for p in range(n)]}[issame]
+    return emb.astype(dtype), same
+
+
+@pytest.mark.parametrize("case", ["f64", "f32", "lfw_like", "ties",
+                                  "ties_f32", "empty_fold", "one_kind_fold"])
+def test_evaluate_matches_jax(case):
+    """The 10-fold ROC and VAL@FAR, every threshold of a fold at once,
+    return JAX's loop's values bit for bit, and raise where it divides by
+    zero (a fold without a pair, or without a same or a different one)."""
+    emb, issame = _embeddings(case)
+    results = []
+    for impl in (ver, jver):
+        try:
+            results.append(impl.evaluate(emb, issame))
+        except ZeroDivisionError:
+            results.append(None)
+    got, want = results
+    assert (got is None) == (want is None) == case.endswith("_fold")
+    for a, b in zip(got or (), want or ()):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
 def test_callback_logs_what_jax_logs(tmp_path):
     """Both callbacks on the same .bin and embedding function log the same
     XNorm, Accuracy-Flip and Accuracy-Highest lines, at the same steps."""

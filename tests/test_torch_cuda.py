@@ -348,3 +348,89 @@ def test_custom_ops_launch_the_kernels(cuda, op):
     torch.cuda.synchronize()
     assert wrapper.launches == before + 1
     torch.testing.assert_close(got, want, **tol)
+
+
+# (N, C_in, H, W, C_out, geometry) of the int8 conv; geometry (kh, kw, sh,
+# sw, ph, pw, dh, dw, ho, wo): flagship shapes at small N, odd sizes, the
+# transposed convs' lhs dilation, the fc as a 1 x 1 conv
+QCONV_CASES = {
+    "3x3_s1": (3, 64, 15, 17, 64, (3, 3, 1, 1, 1, 1, 1, 1, 15, 17)),
+    "3x3_s2": (2, 146, 14, 14, 128, (3, 3, 2, 2, 1, 1, 1, 1, 7, 7)),
+    "1x1_s2": (2, 64, 9, 9, 128, (1, 1, 2, 2, 0, 0, 1, 1, 5, 5)),
+    "7x1_cin82": (2, 82, 7, 7, 18, (7, 1, 1, 1, 3, 0, 1, 1, 7, 7)),
+    "1x7_cin18": (3, 18, 7, 5, 18, (1, 7, 1, 1, 0, 3, 1, 1, 7, 5)),
+    "deconv4": (2, 36, 7, 7, 18, (4, 4, 1, 1, 2, 2, 2, 2, 14, 14)),
+    "deconv3": (2, 8, 4, 4, 18, (3, 3, 1, 1, 1, 1, 2, 2, 7, 7)),
+    "fc": (5, 25088, 1, 1, 512, (1, 1, 1, 1, 0, 0, 1, 1, 1, 1)),
+}
+
+
+@pytest.mark.parametrize("bias", [False, True], ids=["nobias", "bias"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", QCONV_CASES)
+def test_qconv_kernels_bit_equal_plain(cuda, case, dtype, bias):
+    """`quant_act` and `qconv_int8` against their plain versions on the
+    card: codes, scales and outputs bit for bit, input one element off."""
+    from msml_torch.kernels import qconv
+
+    n, ci, h, w, co, geometry = QCONV_CASES[case]
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((n, ci, h, w), generator=gen, device=cuda)
+    x[0] *= 5.0
+    flat = torch.empty(x.numel() + 1, device=cuda, dtype=dtype)
+    x = flat[1:].view(x.shape).copy_(x)  # one element off
+    if case == "fc":
+        x = x.view(n, ci)
+    cp = qconv.padded_channels(ci)
+    xq, sx = qconv.quant_act(x, cp)
+    xq_ref, sx_ref = qconv.quant_act_reference(x, cp)
+    assert torch.equal(xq, xq_ref) and torch.equal(sx, sx_ref)
+    kh, kw = geometry[:2]
+    wq = torch.randint(-127, 128, (co, ci, kh, kw), generator=gen,
+                       device=cuda).to(torch.int8)
+    wp = qconv.pack_weight(wq, cp)
+    sw = torch.rand((co,), generator=gen, device=cuda) * 0.01
+    b = torch.randn((co,), generator=gen, device=cuda) if bias else None
+    y = qconv.qconv_int8(xq, wp, sx, sw, b, geometry, dtype)
+    want = qconv.qconv_reference(xq, wp, sx, sw, b, geometry, dtype)
+    assert y.dtype == dtype and y.shape == want.shape
+    assert torch.equal(y, want)
+
+
+def test_qconv_kernels_count_and_refuse(cuda):
+    from msml_torch.kernels import qconv
+
+    x = torch.randn((2, 64, 5, 5), device=cuda)
+    before = (qconv.quant_act.launches, qconv.qconv_int8.launches)
+    xq, sx = qconv.quant_act(x, 64)
+    wp = qconv.pack_weight(torch.ones((64, 64, 3, 3), dtype=torch.int8,
+                                      device=cuda), 64)
+    sw = torch.ones((64,), device=cuda)
+    qconv.qconv_int8(xq, wp, sx, sw, None, [3, 3, 1, 1, 1, 1, 1, 1, 5, 5],
+                     torch.float32)
+    assert (qconv.quant_act.launches,
+            qconv.qconv_int8.launches) == (before[0] + 1, before[1] + 1)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        off = torch.empty(xq.numel() + 1, dtype=torch.int8, device=cuda)
+        qconv.qconv_int8(off[1:].view(xq.shape), wp, sx, sw, None,
+                         [3, 3, 1, 1, 1, 1, 1, 1, 5, 5], torch.float32)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        qconv.quant_act(x.double(), 64)
+
+
+def test_quantized_model_rows_are_batch_invariant(cuda):
+    """A small CNN's int8 copy on the card: a row's features do not depend
+    on its batch-mates (zeros or other images), bit for bit."""
+    from msml_torch.core.quantize import quantize_model
+
+    torch.manual_seed(0)
+    m = torch.nn.Sequential(
+        torch.nn.Conv2d(3, 64, 3, padding=1), torch.nn.ReLU(),
+        torch.nn.Conv2d(64, 64, 3, stride=2, padding=1), torch.nn.ReLU(),
+        torch.nn.Flatten(), torch.nn.Linear(64 * 8 * 8, 32)).to(cuda)
+    x = torch.randn((8, 3, 16, 16), device=cuda)
+    q = quantize_model(m, x[:1])
+    with torch.no_grad():
+        a = q(torch.cat([x[:3], torch.zeros_like(x[3:])]))
+        b = q(torch.cat([x[:3], 100.0 * x[3:]]))
+    assert torch.equal(a[:3], b[:3])

@@ -210,8 +210,13 @@ def test_artifact_server_needs_no_model_code(exported):
 
 
 def test_quant_is_refused():
+    """Only int8 is a quantization mode, at the command line and in
+    `export_eval_fn`."""
     from msml_torch.tools import export_serving
 
-    with pytest.raises(SystemExit, match="not ported yet"):
-        export_serving.main(export_serving.parse_args(
-            ["--weight_folder", "w", "--quant", "int8", "--device", "cpu"]))
+    with pytest.raises(SystemExit):
+        export_serving.parse_args(["--weight_folder", "w", "--quant",
+                                   "int4"])
+    with pytest.raises(ValueError, match="unknown quant mode 'int4'"):
+        export_serving.export_eval_fn(torch.nn.Linear(3, 2), (3,),
+                                      quant="int4")

@@ -274,7 +274,8 @@ def test_cli_passes_the_protocol_flags(folder, tmp_path, monkeypatch,
 @pytest.mark.parametrize("argv, message", [
     (["--network", "iresnet18_v"], "not ported yet: --network"),
     (["--vis"], "not ported yet: --vis"),
-    (["--quant", "int8"], "not ported yet: --quant"),
+    (["--network", "iresnet18_v", "--quant", "int8"],
+     "not ported yet: --network iresnet18_v$"),
     (["--device-sweep", "--protocol", "NB"],
      "--device-sweep supports protocol BB only"),
     ([], "--weight_folder required")])

@@ -94,7 +94,7 @@ def test_cli_refuses_what_is_not_ported():
     from msml_torch.cli import test as cli_test
 
     for argv in (["--network", "iresnet18_v"], ["--vis"],
-                 ["--device-sweep", "--vis"], ["--quant", "int8"]):
+                 ["--device-sweep", "--vis"]):
         with pytest.raises(SystemExit, match="not ported yet"):
             cli_test.main(cli_test.parse_args(argv + ["--device", "cpu"]))
 

@@ -20,6 +20,7 @@ import io
 import json
 import os
 import threading
+import time
 import types
 import urllib.error
 import urllib.request
@@ -177,21 +178,50 @@ def test_metrics_render_equals_jax():
     assert tm.render() == jm.render()
 
 
-def test_metrics_endpoint_counts(serve):
-    runner = fake_runner(serve)
-    with serving(serve, runner) as base:
-        xs = np.random.RandomState(1).rand(3, 16, 16, 3).astype(np.float32)
-        for _ in range(2):
-            assert _post(base + "/embed_batch", npy(xs))[0] == 200
-        with pytest.raises(urllib.error.HTTPError) as err:
-            _post(base + "/embed_batch", b"junk")
-        assert err.value.code == 400
-        m = metrics(base)
+def _three_requests(base):
+    """Two good /embed_batch requests of 3 images and one malformed one."""
+    xs = np.random.RandomState(1).rand(3, 16, 16, 3).astype(np.float32)
+    for _ in range(2):
+        assert _post(base + "/embed_batch", npy(xs))[0] == 200
+    with pytest.raises(urllib.error.HTTPError) as err:
+        _post(base + "/embed_batch", b"junk")
+    assert err.value.code == 400
+
+
+def _assert_three_counted(m):
     assert float(m["msml_requests_total"]) == 3
     assert float(m["msml_request_errors_total"]) == 1
     assert float(m["msml_device_batches_total"]) == 2
     assert float(m["msml_images_total"]) == 6
     assert float(m['msml_request_latency_seconds_bucket{le="+Inf"}']) == 3
+
+
+def test_metrics_endpoint_counts(serve):
+    """The port counts a request before it writes the reply, so /metrics
+    read at once after the third reply holds all three. The JAX handler
+    counts after writing (msml_tpu/cli/serve.py), so for it alone /metrics
+    is read again until the third request shows, for up to 10 s."""
+    runner = fake_runner(serve)
+    with serving(serve, runner) as base:
+        _three_requests(base)
+        m = metrics(base)
+        deadline = time.monotonic() + 10.0
+        while (serve.__name__.startswith("msml_tpu")
+               and float(m["msml_requests_total"]) < 3
+               and time.monotonic() < deadline):
+            time.sleep(0.01)
+            m = metrics(base)
+    _assert_three_counted(m)
+
+
+def test_port_counts_before_replying():
+    """The port's handler: every count is in place when the client has
+    read the third reply, with no wait, twenty times over."""
+    serve = importlib.import_module("msml_torch.cli.serve")
+    for _ in range(20):
+        with serving(serve, fake_runner(serve)) as base:
+            _three_requests(base)
+            _assert_three_counted(metrics(base))
 
 
 def test_flip_sum_and_l2_policy(serve):
@@ -253,12 +283,16 @@ def test_http_answers_equal_jax(kind):
 @pytest.mark.parametrize("argv", [
     ["--artifact", "m.pt2", "--quant", "int8"],
     ["--artifact", "m.pt2", "--spatial", "2"],
-    ["--weight_folder", "w", "--quant", "int8"],
+    ["--weight_folder", "w", "--quant", "int8", "--spatial", "2"],
     ["--weight_folder", "w", "--spatial", "2"]])
 def test_quant_and_spatial_are_refused(argv):
+    """`--spatial` is not ported; `--quant` is refused for an artifact, with
+    JAX's message (an artifact is quantized when it is exported)."""
     from msml_torch.cli import serve
 
-    with pytest.raises(SystemExit, match="not ported yet"):
+    message = ("export_serving --quant int8" if "--artifact" in argv
+               and "--quant" in argv else "not ported yet: --spatial")
+    with pytest.raises(SystemExit, match=message):
         serve.main(serve.parse_args(argv + ["--no-warmup", "--device",
                                             "cpu"]))
 
