@@ -123,11 +123,15 @@ Phases:
      training CLI wrote, after 10): `csrc/qconv_int8.cu` is built in phase
      1 beside the others (it fails if a kernel there spills). The
      folder's int8 copy (`core/quantize.quantize_eval_model`, bf16): at each
-     distinct int8 geometry of its 90 sites (89 convs and the fc) at
-     B = 8, at a 7 x 1 conv on an odd input one element off, and at the fc
-     at B = 512, `quant_act` and `qconv_int8` bit-equal to their plain
-     versions; the B = 512 quantized eval forward (this slice's path, its
-     launches counted alone: 90 of each int8 kernel and the 42 PReLUs)
+     distinct int8 geometry of its 90 sites (89 convs and the fc; 68 with
+     the output channels in the key) at B = 8, at a 7 x 1 conv on an odd
+     input one element off, at the conv kernel's odd paths (transposed
+     convs with odd ho and wo, Co = 18 and 33, a pixel tail of 105, the fc
+     at B = 1 and 513; one line each with its plan: tile, phases, split K)
+     and at the fc at B = 512, `quant_act` and `qconv_int8` bit-equal to
+     their plain versions; the B = 512 quantized eval forward (this
+     slice's path, its launches counted alone: 90 of each int8 kernel
+     and the 42 PReLUs)
      against the float bf16 forward, feature cosine >= 0.998 on the mean
      and >= 0.995 for each image (JAX's bound, 0.998 for the min over
      images at random init, is held after phase 4 on phase 3's model and
@@ -135,7 +139,8 @@ Phases:
      among zero rows and among other images bit-equal; the int8 and
      bf16 forwards' img/s; each distinct geometry at B = 512 on random
      inputs: both kernels bit-equal to their plain versions, then timed
-     beside their bounds and cuDNN's bf16 op of the same shape;
+     beside their bounds and cuDNN's bf16 op of the same shape, with the
+     plan `qconv_int8` launched;
      then `tools.export_serving --quant int8` (its bytes beside phase 8's
      float artifact), `cli.serve --quant int8` on the folder and the
      int8 artifact's server over HTTP (answers against `runner.infer`
@@ -2162,34 +2167,23 @@ QUANT_FLOOR_COS = 0.995  # ... and each image's: under the min that the
                          # same in three runs), which is below JAX's bound
 QUANT_CHECK_B = 8       # kernels vs plain at every distinct int8 geometry
 QUANT_SITES = 90        # arc18_msml's int8 sites: 89 convs and the fc
+# (N, C_in, H, W, C_out, geometry (kh, kw, sh, sw, ph, pw, dh, dw, ho, wo))
+# of the int8 conv kernel's odd paths, beside the model's own geometries
+QCONV_ODD = {
+    "4x4 transposed, odd ho and wo": (2, 36, 5, 6, 18,
+                                      (4, 4, 1, 1, 2, 2, 2, 2, 9, 11)),
+    "3x3 transposed, odd ho and wo": (3, 8, 4, 3, 18,
+                                      (3, 3, 1, 1, 1, 1, 2, 2, 7, 5)),
+    "Co 18 on the 32-row tile": (2, 40, 9, 11, 18,
+                                 (3, 3, 1, 1, 1, 1, 1, 1, 9, 11)),
+    "Co 33 on the 64-row tile": (2, 40, 9, 11, 33,
+                                 (3, 3, 1, 1, 1, 1, 1, 1, 9, 11)),
+    "a pixel tail of 105": (3, 64, 5, 7, 64, (3, 3, 1, 1, 1, 1, 1, 1, 5, 7)),
+    "the fc at B = 1": (1, 25088, 1, 1, 512, (1, 1, 1, 1, 0, 0, 1, 1, 1, 1)),
+    "the fc at B = 513": (513, 25088, 1, 1, 512,
+                          (1, 1, 1, 1, 0, 0, 1, 1, 1, 1)),
+}
 INT8_OPS = 1979e12      # dense int8 tensor-core peak (operations / s)
-
-
-def quant_sites_of(qmodel, x) -> dict:
-    """The int8 sites that qmodel's forward on x reaches, grouped by their
-    geometry: {(kind, input shape less the batch, qconv geometry, dtype,
-    bias): [(name, module, the first site's input)] + the other names}."""
-    from msml_torch.core.quantize import QuantConv
-
-    sites, handles = {}, []
-    for name, m in qmodel.named_modules():
-        if not isinstance(m, QuantConv):
-            continue
-
-        def hook(mod, args, name=name):
-            xin = args[0]
-            hw = (1, 1) if xin.dim() == 2 else tuple(xin.shape[2:])
-            key = (mod.kind, tuple(xin.shape[1:]), tuple(mod.geometry(*hw)),
-                   mod.dtype, mod.bias is not None)
-            sites.setdefault(key, []).append((name, mod, xin))
-        handles.append(m.register_forward_pre_hook(hook))
-    try:
-        with torch.inference_mode():
-            qmodel(x)
-    finally:
-        for h in handles:
-            h.remove()
-    return sites
 
 
 def check_quant_site(m, xin) -> float:
@@ -2213,56 +2207,56 @@ def check_quant_site(m, xin) -> float:
     return (y.float() - ref.float()).abs().max().item()
 
 
-def valid_taps(size: int, k: int, stride: int, pad: int, dil: int,
-               out: int) -> int:
-    """(output position, tap) pairs along one axis that land on an input
-    element (not padding, not a dilation hole)."""
-    v = np.arange(out)[:, None] * stride - pad + np.arange(k)[None, :]
-    return int(((v >= 0) & (v % dil == 0) & (v // dil < size)).sum())
+def check_qconv_odd(gen) -> float:
+    """`quant_act` and `qconv_int8` bit-equal to their plain versions at
+    QCONV_ODD, bf16 with a bias and float32 without, inputs one element
+    off; prints each case's plan. -> the max abs difference (0)."""
+    from msml_torch.kernels import qconv
+
+    for what, (n, ci, h, w, co, geo) in QCONV_ODD.items():
+        for dtype, with_bias in ((torch.bfloat16, True),
+                                 (torch.float32, False)):
+            x = offset_copy(torch.randn((n, ci, h, w), generator=gen,
+                                        device="cuda", dtype=dtype), 1)
+            if h == w == 1:
+                x = x.view(n, ci)
+            cp = qconv.padded_channels(ci)
+            xq, sx = qconv.quant_act(x, cp)
+            rq, rs = qconv.quant_act_reference(x, cp)
+            wq = torch.randint(-127, 128, (co, ci) + geo[:2], generator=gen,
+                               device="cuda").to(torch.int8)
+            wp = qconv.pack_weight(wq, cp)
+            sw = torch.rand((co,), generator=gen, device="cuda") * 0.01
+            bias = (torch.randn((co,), generator=gen, device="cuda")
+                    if with_bias else None)
+            y = qconv.qconv_int8(xq, wp, sx, sw, bias, geo, dtype)
+            ref = qconv.qconv_reference(xq, wp, sx, sw, bias, geo, dtype)
+            if not (torch.equal(xq, rq) and torch.equal(sx, rs)
+                    and torch.equal(y, ref)):
+                fail(f"quant: {what} {dtype}: codes equal "
+                     f"{torch.equal(xq, rq)}, scales equal "
+                     f"{torch.equal(sx, rs)}, outputs max abs diff "
+                     f"{(y.float() - ref.float()).abs().max().item()}")
+        plan = qconv.qconv_plan(n, cp, co, geo)
+        print(f"[11 quant]   {what}: (N, C, H, W) {(n, ci, h, w)} -> {co} "
+              f"{list(geo)}, bit-equal in bf16 and f32; plan "
+              f"{qconv.describe_plan(plan)}")
+    return 0.0
 
 
 def quant_bounds(n: int, shape, geo, co: int, out_bytes: int):
     """(qconv bound ms, bound_by, quant_act bound ms, operations) of one
-    int8 site at
-    batch n: the operations that its data needs (2 per real
-    multiply-add: no padding, no dilation holes) at the int8 peak, against
-    each input read once and each output written once at the memory rate."""
+    int8 site at batch n (`kernels/qconv.py::site_work`): the operations
+    that its data needs at the int8 peak, against each input read once and
+    each output written once at the memory rate."""
     from msml_torch.kernels import qconv
 
-    ci, h, w = (shape[0], 1, 1) if len(shape) == 1 else shape
-    kh, kw, sh, sw, ph, pw, dh, dw, ho, wo = geo
-    cp = qconv.padded_channels(ci)
-    ops = 2 * n * co * ci * valid_taps(h, kh, sh, ph, dh, ho) \
-        * valid_taps(w, kw, sw, pw, dw, wo)
-    xq = n * h * w * cp
-    nbytes = xq + -(-co // 64) * 64 * kh * kw * cp + n * co * ho * wo \
-        * out_bytes + 4 * (n + 2 * co)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT8_OPS
-    act = (n * ci * h * w * out_bytes + xq + 4 * n) / HBM_BYTES_PER_S
+    ops, conv_bytes, act_bytes = qconv.site_work(n, shape, geo, co,
+                                                 out_bytes)
+    t_bytes, t_ops = conv_bytes / HBM_BYTES_PER_S, ops / INT8_OPS
     return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations", act * 1e3, ops)
-
-
-def cudnn_call(m, x, generator):
-    """The float op of the int8 site `m` as one bf16 cuDNN / cuBLAS call on
-    x (random weights of its shape)."""
-    import torch.nn.functional as F
-
-    co = m.sw.shape[0]
-    kh, kw = m.kernel
-    if m.kind == "linear":
-        w = torch.randn((co, x.shape[1]), generator=generator, device="cuda",
-                        dtype=x.dtype)
-        return lambda: F.linear(x, w)
-    ci = x.shape[1]
-    if m.kind == "transposed":
-        w = torch.randn((ci, co, kh, kw), generator=generator, device="cuda",
-                        dtype=x.dtype)
-        return lambda: F.conv_transpose2d(
-            x, w, stride=m.dil, padding=(kh - 1 - m.pad[0], kw - 1 - m.pad[1]))
-    w = torch.randn((co, ci, kh, kw), generator=generator, device="cuda",
-                    dtype=x.dtype)
-    return lambda: F.conv2d(x, w, stride=m.stride, padding=m.pad)
+            "bytes" if t_bytes >= t_ops else "operations",
+            act_bytes / HBM_BYTES_PER_S * 1e3, ops)
 
 
 def time_quant_sites(sites: dict, smi: str, seed: int) -> list:
@@ -2271,12 +2265,14 @@ def time_quant_sites(sites: dict, smi: str, seed: int) -> list:
     then timed beside their bounds and the bf16 cuDNN op of the same shape;
     -> one dict a geometry."""
     from msml_torch.kernels import qconv
+    from msml_torch.tools.qconv_ab import cudnn_call
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 11)
     rows = []
     for key, found in sites.items():
-        kind, shape, geo, dtype, _ = key
+        kind, shape, geo, dtype, _, _ = key
         name, m, _ = found[0]
+        plan = qconv.qconv_plan(B, m.cp, m.sw.shape[0], geo)
         xs = [torch.randn((B,) + shape, generator=gen, device="cuda",
                           dtype=dtype) for _ in range(2)]
         err = check_quant_site(m, xs[0])
@@ -2295,6 +2291,7 @@ def time_quant_sites(sites: dict, smi: str, seed: int) -> list:
         rows.append({"site": name, "sites": len(found), "kind": kind,
                      "input": list(shape), "out_channels": co,
                      "geometry": list(geo), "dtype": str(dtype)[6:],
+                     "plan": qconv.describe_plan(plan),
                      "int8_ops": ops, "max_abs_err": err,
                      "qconv_ms": conv_ms, "qconv_bound_ms": bound,
                      "bound_by": by, "quant_act_ms": act_ms,
@@ -2311,7 +2308,7 @@ def time_quant_sites(sites: dict, smi: str, seed: int) -> list:
               f"qconv_int8 {r['qconv_ms']:.4f} / {r['qconv_bound_ms']:.4f} "
               f"({r['bound_by']}); quant_act {r['quant_act_ms']:.4f} / "
               f"{r['quant_act_bound_ms']:.4f}; cuDNN bf16 "
-              f"{r['cudnn_bf16_ms']:.4f}")
+              f"{r['cudnn_bf16_ms']:.4f}; plan {r['plan']}")
     total = {k: sum(r[k] * r["sites"] for r in rows) for k in (
         "qconv_ms", "qconv_bound_ms", "quant_act_ms", "quant_act_bound_ms",
         "cudnn_bf16_ms")}
@@ -2412,6 +2409,7 @@ def cli_quant(seed: int, folder: str, scratch: str, smi: str,
     from msml_torch.kernels import qconv
     from msml_torch.kernels.augment import augment_batch
     from msml_torch.tools import export_serving
+    from msml_torch.tools.qconv_ab import int8_sites_of
 
     t_phase = time.perf_counter()
     _, model = load_weight_folder(folder, device="cuda")  # bf16 policy
@@ -2422,7 +2420,7 @@ def cli_quant(seed: int, folder: str, scratch: str, smi: str,
 
     # (b) every distinct int8 geometry at B = 8, one odd shape one element
     # off, and the fc at B = 512: the kernels bit-equal to the plain ones
-    sites = quant_sites_of(qmodel, x[:QUANT_CHECK_B])
+    sites = int8_sites_of(qmodel, x[:QUANT_CHECK_B])
     if sum(len(f) for f in sites.values()) != QUANT_SITES:
         fail(f"quant: {sum(len(f) for f in sites.values())} int8 sites, "
              f"expected {QUANT_SITES}")
@@ -2431,7 +2429,7 @@ def cli_quant(seed: int, folder: str, scratch: str, smi: str,
                and k[2][:2] == (7, 1) and k[1][0] == 18)
     xo = offset_copy(torch.randn((3, 18, 13, 11), generator=gen,
                                  device="cuda", dtype=odd.dtype), 1)
-    err = max(err, check_quant_site(odd, xo))
+    err = max(err, check_quant_site(odd, xo), check_qconv_odd(gen))
     fc_in = {}
     fc = next(f[0][1] for k, f in sites.items() if k[0] == "linear")
     hook = fc.register_forward_pre_hook(
@@ -2464,7 +2462,8 @@ def cli_quant(seed: int, folder: str, scratch: str, smi: str,
           f"{QUANT_SITES} int8 sites in {len(sites)} distinct geometries: "
           f"quant_act and qconv_int8 bit-equal to their plain versions at "
           f"each (B = {QUANT_CHECK_B}), at a 7 x 1 conv on (3, 18, 13, 11) "
-          f"one element off, and at the fc at B = {B}; B = {B} forward: "
+          f"one element off, at the {len(QCONV_ODD)} odd cases above and "
+          f"at the fc at B = {B}; B = {B} forward: "
           f"feature cosine to the float bf16 forward mean {cos:.6f} (>= "
           f"{QUANT_MEAN_COS}), median {per_image.median().item():.6f}, 1st "
           f"percentile {per_image.quantile(0.01).item():.6f}, min "

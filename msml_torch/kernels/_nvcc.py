@@ -61,7 +61,13 @@ def nvcc_version(nvcc: str) -> str:
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
     """The library built from `csrc/<name>.cu`, building it if needed."""
-    src = os.path.join(CSRC, name + ".cu")
+    return load_source(os.path.join(CSRC, name + ".cu"), name)
+
+
+@functools.lru_cache(maxsize=None)
+def load_source(src: str, name: str) -> ctypes.CDLL:
+    """The library built from the CUDA source `src` under `name` (in
+    `builds` and the library's file name), building it if needed."""
     with open(src, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(FLAGS).encode())
     lib_path = os.path.join(BUILD_DIR,

@@ -45,18 +45,69 @@ Design:
   as 16-byte rows through shared memory (an elementwise pass for the fc's
   (N, C) input, whose layout does not change). It is CUDA C++ rather than
   Triton, as the route this port takes for every new kernel.
-- `qconv_int8`: a GEMM with M = Co, N = the batch's output pixels and K =
-  kh kw cp, K padded per tap (cp = C rounded up to 32), so that a K step
-  of 32 is one tap's 32 channels: one 32-byte row of xq, two aligned
-  16-byte `cp.async` with zero fill for padding, stride and dilation
-  holes. A block computes 64 channels x 128 pixels with 8 warps, each 32 x
-  32 as 2 x 4 `mma.sync.m16n8k32.s8.s8.s32`, over a ring of 4 stages; the
-  epilogue is `__int2float_rn(acc) * (sx[n] * sw[co])` in f32 (an FMA
-  with the bias for a float32 output, none otherwise), rounded to the
-  output dtype and stored NCHW with a predicate per element (Co = 18, the
-  pixel tail). The fc runs as a 1 x 1 conv on (N,
-  25088, 1, 1). Not yet: `wgmma`, TMA, split K for the fc's long K,
-  folding the quantize pass into the previous layer's epilogue.
+- `qconv_int8`, design "v2": a GEMM with M = Co, N = the batch's output
+  pixels and K = the taps x cp (cp = C rounded up to 32), on
+  `mma.sync.m16n8k32.s8.s8.s32`, one launch per call. Its plan
+  (`qconv_plan`, in Python, handed to the C entry point as int32s and
+  tested on the CPU in tests/test_torch_qconv_plan.py) fixes:
+  * phases: a transposed conv runs lhs-dilated (dil 2 here), where three
+    of every four taps of a 4 x 4 kernel fall in a hole. Its outputs split
+    by residue modulo the period dil / gcd(stride, dil) into phases
+    (`grid` over them, one launch); each phase is a plain conv over the
+    undilated input that walks only the taps landing on input rows and
+    columns (4 of 16 for the 4 x 4 deconvs, 1-4 of 9 for the 3 x 3 one),
+    masked where ho or wo is odd and the phases differ in size. No hole is
+    loaded or multiplied. A conv without dilation is one phase.
+  * the tile, a template instance picked by the C entry point: bm = 32
+    output channels for Co <= 32 (rows 0..31 of the 64-row packing; 18 of
+    32 rows are real at the Co = 18 sites, against 18 of 64 before), 128
+    where the packing's rows are a multiple of 128, else 64; bn = 256
+    pixels (bm = 64 only), 128 or 64, the widest that still gives 8, 4 or
+    2 blocks per SM. A warp owns (32 or 64) x (32 or 64) of the tile.
+  * split K: a launch of fewer blocks than SMs over at least 64 stages of
+    K (the fc: K = 25,088, B = 512, 32 tiles) splits K into slices of about
+    two blocks per SM in all (9 at B = 512). Each block adds its int32
+    partial sums into a workspace the wrapper allocates and the C entry
+    point zeroes, by `atomicAdd`; the last block of a tile to arrive (an
+    arrival count) reads the sums back and runs the epilogue. int32
+    addition is exact, so the output is the same in any order.
+  A block stages 64 bytes of K a stage (two k32 steps) through a ring of
+  4 stages of `cp.async` with zero fill (padding, past the phase's K).
+  Each thread copies one 16-byte piece of each of its A and B rows; since
+  cp is a multiple of 32 a piece never straddles a tap, and its (tap,
+  channel) advances by additions (no division in the loop). A shared row
+  is 64 bytes with its 16-byte chunks XOR-swizzled by (row / 2) % 4, so
+  that the stores and the `ldmatrix.x4` loads meet no bank conflict: the
+  int8 m16n8k32 A and B fragments are b16 8 x 8 matrices of 16-byte K
+  rows, four to an `ldmatrix.x4`. The epilogue dequantizes in registers
+  (`__int2float_rn(acc) * __fmul_rn(sx[n], sw[co])`, an FMA with the bias
+  for float32, the bias added after rounding for bfloat16), writes the
+  tile to shared memory over the ring, and stores each channel's runs of
+  pixels as 16-byte vectors where Ho Wo is a multiple of the vector (8
+  bfloat16 or 4 float32), else one element a thread along the pixels
+  (along the channels for the fc's (N, Co)). Each output pixel's (n,
+  offsets) are computed once per block, in a table in shared memory.
+  Instances (`-Xptxas -v` on the H100's nvcc 12.9, both output dtypes;
+  no spill; dynamic shared memory, over 48 KB by `cudaFuncSetAttribute`;
+  blocks per SM by registers and shared memory):
+
+  | bm x bn | threads | warp tile | registers | shared memory | blocks / SM |
+  |---|---|---|---|---|---|
+  | 32 x 64 | 64 | 32 x 32 | 107 | 26,128 B | 8 |
+  | 32 x 128 | 128 | 32 x 32 | 107 | 44,048 B | 4 |
+  | 64 x 64 | 128 | 32 x 32 | 101 | 34,320 B | 4 |
+  | 64 x 128 | 256 | 32 x 32 | 95 | 52,240 B | 2 |
+  | 64 x 256 | 256 | 32 x 64 | 126 | 88,080 B | 2 |
+  | 128 x 64 | 128 | 64 x 32 | 123 | 50,704 B | 4 |
+  | 128 x 128 | 256 | 64 x 32 | 125 | 68,624 / 72,720 B | 2 |
+
+  What bounds it: at B = 512, 50 of arc18_msml's 68 geometries are
+  bound by bytes (the int8 codes in, the bf16 output out: at the 112²
+  conv 411 MB and 822 MB), the 18 3 x 3 convs of 128 channels or more in
+  and out by int8 operations. The design reads each input byte once per tap from
+  L2 and writes each output once, coalesced; what it does not yet have:
+  `wgmma` and TMA, reuse of a staged input row across the taps, and
+  `quant_act` folded into the previous op's epilogue (PERF.md).
 
 On a CPU tensor the wrappers run the plain versions, `quant_act_reference`
 and `qconv_reference` (F.conv2d on the int8 values as float64: every int32
@@ -69,7 +120,8 @@ program (`tools/export_serving.py --quant int8`) runs the kernels.
 from __future__ import annotations
 
 import functools
-from typing import Optional, Sequence, Tuple
+import math
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -82,7 +134,12 @@ EPS = 1e-12    # floor of every scale (:59)
 # f32(1 / 127): what XLA multiplies by for the reference's `amax / 127`
 INV_QMAX = float(np.float32(1.0) / np.float32(QMAX))
 CP_ALIGN = 32  # channel padding of xq: one mma k32 step per tap
-BM = 64        # output channels of a kernel block: wp's rows are padded to it
+W_ROWS = 64    # wp's rows (output channels) are padded to a multiple of it
+BK = 64        # K bytes of one stage of the conv kernel: two mma k32 steps
+TILES = ((32, 64), (32, 128), (64, 64), (64, 128), (64, 256), (128, 64),
+         (128, 128))  # (bm, bn) of the kernel's template instances
+MAX_PHASES = 64  # phases of one launch: dil_h * dil_w at most
+SMS = 132      # streaming multiprocessors of the H100
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -155,7 +212,7 @@ def pack_weight(wq: torch.Tensor, cp: int) -> torch.Tensor:
     co, ci, kh, kw = wq.shape
     w = F.pad(wq.permute(0, 2, 3, 1), (0, cp - ci))
     w = w.reshape(co, kh * kw * cp)
-    return F.pad(w, (0, 0, 0, -(-co // BM) * BM - co)).contiguous()
+    return F.pad(w, (0, 0, 0, -(-co // W_ROWS) * W_ROWS - co)).contiguous()
 
 
 def unpack_weight(wp: torch.Tensor, co: int, kh: int, kw: int
@@ -204,7 +261,16 @@ def qconv_reference(xq: torch.Tensor, wp: torch.Tensor, sx: torch.Tensor,
     # cuDNN's transform algorithms would round; the native conv is im2col
     # and a float64 GEMM, exact on these integers
     with torch.backends.cudnn.flags(enabled=False):
-        acc = F.conv2d(x, weight, stride=(sh, swd)).to(torch.float32)
+        acc = F.conv2d(x, weight, stride=(sh, swd))
+    return dequantize(acc, sx, sw, bias, out_dtype)
+
+
+def dequantize(acc: torch.Tensor, sx: torch.Tensor, sw: torch.Tensor,
+               bias: Optional[torch.Tensor], out_dtype: torch.dtype
+               ) -> torch.Tensor:
+    """float32(acc) * (sx[n] * sw[co]) (+ bias) in out_dtype, as the kernel
+    rounds it, of exact sums acc (N, Co, Ho, Wo) held in any dtype."""
+    acc = acc.to(torch.float32)
     scale = sx[:, None, None, None] * sw[None, :, None, None]
     if bias is None:
         return (acc * scale).to(out_dtype)
@@ -214,11 +280,167 @@ def qconv_reference(xq: torch.Tensor, wp: torch.Tensor, sx: torch.Tensor,
     return ((acc * scale).to(out_dtype).float() + b).to(out_dtype)
 
 
+class Phase(NamedTuple):
+    """Outputs (ry + ty jy, rx + tx jx) for jy < ho, jx < wo of a conv
+    with period (ty, tx) and input step (sy, sx) (`QConvPlan`): output
+    (jy, jx) reads input (iy0 + sy jy + i, ix0 + sx jx + j) with the
+    weight's tap (ky0 + dil_h i, kx0 + dil_w j), i < nky, j < nkx."""
+    ry: int
+    rx: int
+    ky0: int
+    kx0: int
+    nky: int
+    nkx: int
+    iy0: int
+    ix0: int
+    ho: int
+    wo: int
+
+
+class QConvPlan(NamedTuple):
+    """What `qconv_int8`'s kernel is launched with (`qconv_plan`)."""
+    bm: int          # output channels of a block (its template instance)
+    bn: int          # output pixels of a block
+    splits: int      # K slices (blockIdx.z), each of kt_per stages of BK
+    kt_per: int
+    period: Tuple[int, int]  # (ty, tx)
+    step: Tuple[int, int]    # (sy, sx)
+    ntm: int         # channel tiles
+    ntp: int         # pixel tiles (of the largest phase)
+    phases: Tuple[Phase, ...]
+
+    @property
+    def blocks(self) -> int:
+        """Blocks of one K slice: a (channel tile, phase, pixel tile)
+        each."""
+        return self.ntm * len(self.phases) * self.ntp
+
+    @property
+    def workspace(self) -> int:
+        """int32 elements of the split-K workspace: each block's partial
+        sums and an arrival count (0 without a split)."""
+        return self.blocks * (self.bm * self.bn + 1) if self.splits > 1 \
+            else 0
+
+    def array(self) -> np.ndarray:
+        """The C entry point's int32 plan: bm, bn, splits, kt_per, ty, tx,
+        sy, sx, phases, ntm, ntp, then each phase's ten fields."""
+        head = (self.bm, self.bn, self.splits, self.kt_per, *self.period,
+                *self.step, len(self.phases), self.ntm, self.ntp)
+        return np.array(head + sum(self.phases, ()), dtype=np.int32)
+
+
+def _axis_phases(k: int, stride: int, pad: int, dil: int, out: int):
+    """(period, step, [(r, k0, nk, i0, outputs)]) along one axis: output
+    o = r + period j reads the input dilated by `dil` at o stride - pad + t
+    for the taps t; the taps that land on an input element are t = k0 + dil
+    i (i < nk), at input element i0 + step j + i."""
+    g = math.gcd(stride, dil)
+    period, step = dil // g, stride // g
+    out_phases = []
+    for r in range(min(period, out)):
+        k0 = (pad - r * stride) % dil
+        nk = 0 if k0 >= k else (k - 1 - k0) // dil + 1
+        out_phases.append((r, k0, nk, (r * stride - pad + k0) // dil,
+                           -(-(out - r) // period)))
+    return period, step, out_phases
+
+
+def qconv_plan(n: int, cp: int, co: int, geometry: Sequence[int]
+               ) -> QConvPlan:
+    """The launch plan of `qconv_int8` for a batch of n, cp input channels
+    (padded), co output channels and `geometry`.
+
+    Phases: an lhs-dilated conv (a transposed conv's, dil > 1) splits its
+    outputs by their residue modulo the period dil / gcd(stride, dil); each
+    phase is a plain conv over the undilated input with step stride / gcd,
+    over only the taps that land on input rows and columns (no hole is
+    loaded or multiplied). A conv without dilation is one phase. Tile: bm =
+    32 channels for co <= 32 (rows 0..31 of the 64-row packing), 128 where
+    the packing's rows are a multiple of 128, else 64; bn = 256 pixels
+    (with bm = 64) or 128 where that still gives 8 or 4 blocks per SM,
+    else 64. Split K: a launch of fewer blocks than SMs over at least 64
+    stages of K (the fc) splits each phase's stages into slices of kt_per,
+    about two blocks per SM in all."""
+    kh, kw, sh, swd, ph, pw, dh, dw, ho, wo = geometry
+    ty, sy, rows = _axis_phases(kh, sh, ph, dh, ho)
+    tx, sx, cols = _axis_phases(kw, swd, pw, dw, wo)
+    phases = tuple(Phase(ry, rx, ky0, kx0, nky, nkx, iy0, ix0, hp, wp_)
+                   for ry, ky0, nky, iy0, hp in rows
+                   for rx, kx0, nkx, ix0, wp_ in cols)
+    co_pad = -(-co // W_ROWS) * W_ROWS
+    bm = 32 if co <= 32 else 128 if co_pad % 128 == 0 else 64
+    ntm = -(-co // bm)
+    pixels = n * max(f.ho * f.wo for f in phases)
+    bn = next(b for b in (256, 128, 64) if (bm, b) in TILES and (
+        b == 64 or ntm * len(phases) * -(-pixels // b) >= SMS * b // 32))
+    ntp = -(-pixels // bn)
+    kt = max(-(-f.nky * f.nkx * cp // BK) for f in phases)
+    splits, kt_per = 1, max(kt, 1)
+    blocks = ntm * len(phases) * ntp
+    if blocks < SMS and kt >= 64:
+        kt_per = -(-kt // min(-(-2 * SMS // blocks), kt // 16))
+        splits = -(-kt // kt_per)
+    return QConvPlan(bm, bn, splits, kt_per, (ty, tx), (sy, sx), ntm, ntp,
+                     phases)
+
+
+def _landing(size: int, k: int, stride: int, pad: int, dil: int,
+             out: int) -> np.ndarray:
+    """The input element of each (output position, tap) pair along one
+    axis that lands on one (not padding, not a dilation hole)."""
+    v = np.arange(out)[:, None] * stride - pad + np.arange(k)[None, :]
+    return v[(v >= 0) & (v % dil == 0) & (v // dil < size)] // dil
+
+
+def site_work(n: int, shape: Sequence[int], geometry: Sequence[int],
+              co: int, out_bytes: int) -> Tuple[int, int, int]:
+    """What an int8 site at batch n must do, for its bounds: (int8
+    operations, 2 per real multiply-add (no padding, no dilation holes);
+    bytes `qconv_int8` must move (the pixels of xq that some tap lands on
+    and the packed weight read once, y written once, the scales); bytes
+    `quant_act` must move (x read once, xq written once)). shape is the
+    input less the batch, (C, H, W) or (C,)."""
+    ci, h, w = (shape[0], 1, 1) if len(shape) == 1 else shape
+    kh, kw, sh, swd, ph, pw, dh, dw, ho, wo = geometry
+    cp = padded_channels(ci)
+    rows, cols = (_landing(h, kh, sh, ph, dh, ho),
+                  _landing(w, kw, swd, pw, dw, wo))
+    ops = 2 * n * co * ci * rows.size * cols.size
+    xq = n * h * w * cp
+    conv = n * np.unique(rows).size * np.unique(cols).size * cp \
+        + -(-co // W_ROWS) * W_ROWS * kh * kw * cp \
+        + n * co * ho * wo * out_bytes + 4 * (n + 2 * co)
+    return ops, int(conv), n * ci * h * w * out_bytes + xq + 4 * n
+
+
+def describe_plan(plan: QConvPlan) -> str:
+    """One line: tile, phases with their taps, split K, blocks."""
+    taps = sorted({f.nky * f.nkx for f in plan.phases})
+    return (f"tile {plan.bm}x{plan.bn}, {len(plan.phases)} phase"
+            f"{'s' if len(plan.phases) > 1 else ''} of "
+            f"{'/'.join(map(str, taps))} tap{'s' if taps[-1] > 1 else ''}, "
+            f"split K "
+            f"{plan.splits} x {plan.kt_per} stages, "
+            f"{plan.blocks * plan.splits} blocks")
+
+
+@functools.lru_cache(maxsize=4096)
+def _plan_args(n: int, cp: int, co: int, geometry: Tuple[int, ...]):
+    """The plan and its int32 array, once a shape (the wrapper's host
+    time)."""
+    plan = qconv_plan(n, cp, co, geometry)
+    if len(plan.phases) > MAX_PHASES:
+        raise ValueError(f"qconv_int8: {len(plan.phases)} phases of "
+                         f"geometry {geometry} (at most {MAX_PHASES})")
+    return plan, plan.array()
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = _nvcc.load("qconv_int8")
     _nvcc.signature(lib.quant_act, pointers=4, ints=5)
-    _nvcc.signature(lib.qconv_int8, pointers=6, ints=16)
+    _nvcc.signature(lib.qconv_int8, pointers=8, ints=16)
     return lib
 
 
@@ -307,7 +529,7 @@ def _check_conv(xq, wp, sx, sw, bias, geometry, out_dtype) -> None:
             or out_dtype not in _OUT_DTYPES):
         raise ValueError(f"qconv_int8: dtypes {xq.dtype}, {wp.dtype}, "
                          f"{sx.dtype}, {sw.dtype} -> {out_dtype}")
-    if (cp % CP_ALIGN or tuple(wp.shape) != (-(-co // BM) * BM,
+    if (cp % CP_ALIGN or tuple(wp.shape) != (-(-co // W_ROWS) * W_ROWS,
                                               kh * kw * cp)
             or tuple(sx.shape) != (n,) or min(sh, swd, dh, dw, ho, wo) < 1
             or min(ph, pw) < 0):
@@ -348,13 +570,18 @@ def _qconv_cuda(xq: torch.Tensor, wp: torch.Tensor, sx: torch.Tensor,
     kh, kw, sh, swd, ph, pw, dh, dw, ho, wo = geometry
     n, h, w, cp = xq.shape
     co = sw.shape[0]
+    plan, args = _plan_args(n, cp, co, tuple(geometry))
     y = torch.empty((n, co, ho, wo), dtype=out_dtype, device=xq.device)
+    ws = (torch.empty((plan.workspace,), dtype=torch.int32,
+                      device=xq.device) if plan.splits > 1 else None)
     lib = _lib()
     with torch.cuda.device(xq.device):
         err = lib.qconv_int8(xq.data_ptr(), wp.data_ptr(), sx.data_ptr(),
                              sw.data_ptr(),
                              None if bias is None else bias.data_ptr(),
-                             y.data_ptr(), n, h, w, cp, co,
+                             y.data_ptr(),
+                             None if ws is None else ws.data_ptr(),
+                             args.ctypes.data, n, h, w, cp, co,
                              ho, wo, kh, kw, sh, swd, ph, pw, dh, dw,
                              int(out_dtype == torch.bfloat16),
                              torch.cuda.current_stream().cuda_stream)

@@ -352,7 +352,9 @@ def test_custom_ops_launch_the_kernels(cuda, op):
 
 # (N, C_in, H, W, C_out, geometry) of the int8 conv; geometry (kh, kw, sh,
 # sw, ph, pw, dh, dw, ho, wo): flagship shapes at small N, odd sizes, the
-# transposed convs' lhs dilation, the fc as a 1 x 1 conv
+# transposed convs' lhs dilation (phases of unequal size where ho or wo is
+# odd), Co on the 32- and 64-row tiles, pixel tails, the fc as a 1 x 1
+# conv with a split K
 QCONV_CASES = {
     "3x3_s1": (3, 64, 15, 17, 64, (3, 3, 1, 1, 1, 1, 1, 1, 15, 17)),
     "3x3_s2": (2, 146, 14, 14, 128, (3, 3, 2, 2, 1, 1, 1, 1, 7, 7)),
@@ -362,6 +364,13 @@ QCONV_CASES = {
     "deconv4": (2, 36, 7, 7, 18, (4, 4, 1, 1, 2, 2, 2, 2, 14, 14)),
     "deconv3": (2, 8, 4, 4, 18, (3, 3, 1, 1, 1, 1, 2, 2, 7, 7)),
     "fc": (5, 25088, 1, 1, 512, (1, 1, 1, 1, 0, 0, 1, 1, 1, 1)),
+    "deconv4_odd": (2, 36, 5, 6, 18, (4, 4, 1, 1, 2, 2, 2, 2, 9, 11)),
+    "deconv3_odd": (3, 8, 4, 3, 18, (3, 3, 1, 1, 1, 1, 2, 2, 7, 5)),
+    "co18_bm32": (2, 40, 9, 11, 18, (3, 3, 1, 1, 1, 1, 1, 1, 9, 11)),
+    "co33_bm64": (2, 40, 9, 11, 33, (3, 3, 1, 1, 1, 1, 1, 1, 9, 11)),
+    "tail_105": (3, 64, 5, 7, 64, (3, 3, 1, 1, 1, 1, 1, 1, 5, 7)),
+    "fc_b1": (1, 25088, 1, 1, 512, (1, 1, 1, 1, 0, 0, 1, 1, 1, 1)),
+    "fc_b513": (513, 25088, 1, 1, 512, (1, 1, 1, 1, 0, 0, 1, 1, 1, 1)),
 }
 
 
@@ -379,7 +388,7 @@ def test_qconv_kernels_bit_equal_plain(cuda, case, dtype, bias):
     x[0] *= 5.0
     flat = torch.empty(x.numel() + 1, device=cuda, dtype=dtype)
     x = flat[1:].view(x.shape).copy_(x)  # one element off
-    if case == "fc":
+    if case.startswith("fc"):
         x = x.view(n, ci)
     cp = qconv.padded_channels(ci)
     xq, sx = qconv.quant_act(x, cp)
