@@ -8,8 +8,11 @@ Phases:
      build of the CUDA kernels (`nvcc` into msml_torch/_build/cuda, one
      process per source, side by side): each build's time, the `nvcc
      --version` line and ptxas's registers and spills (an augment, bf16
-     forward or dW kernel that spills fails), and the augment kernel's
-     shared memory and the clusters the card holds at once;
+     forward or dW kernel that spills fails), the augment kernel's
+     shared memory and the clusters the card holds at once, and
+     `quant_act`'s largest cluster and, for its plans at the large bf16
+     inputs, the fc's and the f32 112² input at B = 512, its shared
+     memory a block and the clusters the card holds at once;
   2. kernel: each kernel against its plain PyTorch version, and its time
      beside its bound:
      a. `augment_batch` at B = 512, 112 x 112 f32, over every option it
@@ -129,7 +132,12 @@ Phases:
      convs with odd ho and wo, Co = 18 and 33, a pixel tail of 105, the fc
      at B = 1 and 513; one line each with its plan: tile, phases, split K)
      and at the fc at B = 512, `quant_act` and `qconv_int8` bit-equal to
-     their plain versions; the B = 512 quantized eval forward (this
+     their plain versions; `quant_act` on each route of its plan (the
+     fc's flat row, clusters of 1 to 16 blocks in bf16, 16 in float32,
+     and the two-pass route for a float32 sample over 16 blocks' shared
+     memory), aligned and one element off, bit-equal, and the nodes of a
+     captured call counted (one kernel on the cluster route, a memset and
+     two kernels on the two-pass route); the B = 512 quantized eval forward (this
      slice's path, its launches counted alone: 90 of each int8 kernel
      and the 42 PReLUs)
      against the float bf16 forward, feature cosine >= 0.998 on the mean
@@ -140,7 +148,9 @@ Phases:
      bf16 forwards' img/s; each distinct geometry at B = 512 on random
      inputs: both kernels bit-equal to their plain versions, then timed
      beside their bounds and cuDNN's bf16 op of the same shape, with the
-     plan `qconv_int8` launched;
+     plans `qconv_int8` and `quant_act` launched (the kernels line's
+     `quant_act` entry carries the route, K and the clusters resident of
+     its site, and the graph nodes of each route);
      then `tools.export_serving --quant int8` (its bytes beside phase 8's
      float artifact), `cli.serve --quant int8` on the folder and the
      int8 artifact's server over HTTP (answers against `runner.infer`
@@ -308,7 +318,7 @@ def phase_build():
             if "Compiling entry function" in line:
                 m = re.search(r"\d(fwd_bf16|fwd_f32|dw_bf16|dw_f32|"
                               r"dw_reduce|augment_cluster|qconv|act_amax|"
-                              r"act_quant_flat|act_quant)"
+                              r"act_cluster|act_quant)"
                               r"(?:I((?:L[ib]\d+E)+)E)?", line)
                 args = re.findall(r"L[ib](\d+)E", m.group(2) or "") if m \
                     else []
@@ -331,6 +341,19 @@ def phase_build():
               f"memory a block ({per_sm} blocks a SM at once), with relight "
               f"{relit.smem} B in clusters of {relit.cluster} ({clusters} "
               "clusters at once)")
+    for bf16 in (True, False):
+        print(f"[1 build]   act_cluster<{'bf16' if bf16 else 'f32'}>: "
+              f"clusters of up to {qconv.cluster_cap(0, bf16)} blocks "
+              f"placed at {qconv.SMEM_BLOCK} B a block")
+    for what, (c, hw, dtype) in ACT_PLANS.items():
+        bf16 = dtype == torch.bfloat16
+        plan = qconv.quant_act_plan(B, c, hw, 2 if bf16 else 4,
+                                    qconv.cluster_cap(0, bf16))
+        clusters, per_sm = qconv.act_occupancy(bf16, plan.k, plan.smem)
+        print(f"[1 build]   quant_act {what} at B = {B}: "
+              f"{qconv.describe_act_plan(plan)} of "
+              f"{qconv.ACT_THREADS} threads; {clusters} clusters at once "
+              f"({per_sm} blocks a SM)")
     if spills:
         fail(f"{sorted(set(spills))} spill registers")
 
@@ -2184,6 +2207,26 @@ QCONV_ODD = {
                           (1, 1, 1, 1, 0, 0, 1, 1, 1, 1)),
 }
 INT8_OPS = 1979e12      # dense int8 tensor-core peak (operations / s)
+# quant_act's plans that phase 1 shows: (C, H W, dtype) of a sample
+ACT_PLANS = {
+    "64x112² bf16": (64, 112 * 112, torch.bfloat16),
+    "64x56² bf16": (64, 56 * 56, torch.bfloat16),
+    "128x28² bf16": (128, 28 * 28, torch.bfloat16),
+    "512x7² bf16": (512, 7 * 7, torch.bfloat16),
+    "the fc's 25088 bf16": (25088, 1, torch.bfloat16),
+    "64x112² f32": (64, 112 * 112, torch.float32)}
+# (N, C, H, W, dtype, the route's K) of each of quant_act's routes: the fc
+# flat in one block, rows in clusters of 1 to 16, and a sample over 16
+# blocks' shared memory on the two-pass route (K = 0)
+ACT_ROUTES = {
+    "flat, the fc": (8, 25088, 1, 1, torch.bfloat16, 1),
+    "rows, one block": (8, 64, 28, 28, torch.bfloat16, 1),
+    "rows, cluster of 2": (8, 128, 28, 28, torch.bfloat16, 2),
+    "rows, cluster of 4": (8, 64, 56, 56, torch.bfloat16, 4),
+    "rows, cluster of 8": (8, 82, 56, 56, torch.bfloat16, 8),
+    "rows, cluster of 16": (8, 64, 112, 112, torch.bfloat16, 16),
+    "rows, cluster of 16, f32": (4, 64, 112, 112, torch.float32, 16),
+    "two-pass, f32 over the cap": (2, 64, 128, 128, torch.float32, 0)}
 
 
 def check_quant_site(m, xin) -> float:
@@ -2244,6 +2287,64 @@ def check_qconv_odd(gen) -> float:
     return 0.0
 
 
+def graph_nodes(fn) -> int:
+    """Nodes of a CUDA graph that captured one call of fn (warmed up)."""
+    import ctypes
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    count = ctypes.c_size_t(0)
+    err = ctypes.CDLL("libcudart.so").cudaGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(count))
+    if err != 0:
+        fail(f"cudaGraphGetNodes: error {err}")
+    del graph
+    return count.value
+
+
+def check_quant_routes(gen) -> dict:
+    """`quant_act` on each route of its plan (ACT_ROUTES) bit-equal to its
+    plain version, on inputs aligned and one element off; the nodes of a
+    captured call: one on the cluster route, three on the two-pass route
+    (a memset and two kernels). -> {route: nodes}."""
+    from msml_torch.kernels import qconv
+
+    nodes = {}
+    for what, (n, c, h, w, dtype, k) in ACT_ROUTES.items():
+        bf16 = dtype == torch.bfloat16
+        plan = qconv.quant_act_plan(n, c, h * w, 2 if bf16 else 4,
+                                    qconv.cluster_cap(0, bf16))
+        if plan.k != k:
+            fail(f"quant_act {what}: plan {plan}, expected K = {k}")
+        cp = qconv.padded_channels(c)
+        for offset in (0, 1):
+            x = torch.randn((n, c, h, w), generator=gen, device="cuda")
+            x[0] *= 5.0
+            x[1] = 0.0
+            x = offset_copy(x.to(dtype), offset)
+            if h == w == 1:
+                x = x.view(n, c)
+            xq, sx = qconv.quant_act(x, cp)
+            rq, rs = qconv.quant_act_reference(x, cp)
+            if not (torch.equal(xq, rq) and torch.equal(sx, rs)):
+                fail(f"quant_act {what}, offset {offset}: codes equal "
+                     f"{torch.equal(xq, rq)}, scales equal "
+                     f"{torch.equal(sx, rs)}")
+        nodes[what] = graph_nodes(lambda: qconv.quant_act(x, cp))
+        if nodes[what] != (1 if k else 3):
+            fail(f"quant_act {what}: {nodes[what]} graph nodes a call")
+        print(f"[11 quant]   quant_act {what}: {(n, c, h, w)} "
+              f"{str(dtype)[6:]}, {qconv.describe_act_plan(plan)}: "
+              f"bit-equal aligned and one element off; {nodes[what]} "
+              "graph node(s) a call")
+        del x, xq, sx, rq, rs
+    torch.cuda.empty_cache()
+    return nodes
+
+
 def quant_bounds(n: int, shape, geo, co: int, out_bytes: int):
     """(qconv bound ms, bound_by, quant_act bound ms, operations) of one
     int8 site at batch n (`kernels/qconv.py::site_work`): the operations
@@ -2273,6 +2374,9 @@ def time_quant_sites(sites: dict, smi: str, seed: int) -> list:
         kind, shape, geo, dtype, _, _ = key
         name, m, _ = found[0]
         plan = qconv.qconv_plan(B, m.cp, m.sw.shape[0], geo)
+        act = qconv.quant_act_plan(
+            B, shape[0], int(np.prod(shape[1:])), dtype.itemsize,
+            qconv.cluster_cap(0, dtype == torch.bfloat16))
         xs = [torch.randn((B,) + shape, generator=gen, device="cuda",
                           dtype=dtype) for _ in range(2)]
         err = check_quant_site(m, xs[0])
@@ -2292,6 +2396,8 @@ def time_quant_sites(sites: dict, smi: str, seed: int) -> list:
                      "input": list(shape), "out_channels": co,
                      "geometry": list(geo), "dtype": str(dtype)[6:],
                      "plan": qconv.describe_plan(plan),
+                     "act_plan": qconv.describe_act_plan(act),
+                     "act_k": act.k,
                      "int8_ops": ops, "max_abs_err": err,
                      "qconv_ms": conv_ms, "qconv_bound_ms": bound,
                      "bound_by": by, "quant_act_ms": act_ms,
@@ -2308,7 +2414,8 @@ def time_quant_sites(sites: dict, smi: str, seed: int) -> list:
               f"qconv_int8 {r['qconv_ms']:.4f} / {r['qconv_bound_ms']:.4f} "
               f"({r['bound_by']}); quant_act {r['quant_act_ms']:.4f} / "
               f"{r['quant_act_bound_ms']:.4f}; cuDNN bf16 "
-              f"{r['cudnn_bf16_ms']:.4f}; plan {r['plan']}")
+              f"{r['cudnn_bf16_ms']:.4f}; plan {r['plan']}; quant_act "
+              f"{r['act_plan']}")
     total = {k: sum(r[k] * r["sites"] for r in rows) for k in (
         "qconv_ms", "qconv_bound_ms", "quant_act_ms", "quant_act_bound_ms",
         "cudnn_bf16_ms")}
@@ -2333,7 +2440,8 @@ def once_ms(fn) -> float:
     return start.elapsed_time(end)
 
 
-def quant_entries(sites: dict, rows: list, errs: dict, seed: int) -> list:
+def quant_entries(sites: dict, rows: list, errs: dict, seed: int,
+                  nodes: dict) -> list:
     """The kernels line's qconv_int8 and quant_act entries, at the site of
     the most int8 operations at B = 512: kernel, plain version (float64
     F.conv2d without cuDNN; float32 torch ops), bound; no PyTorch call
@@ -2348,6 +2456,9 @@ def quant_entries(sites: dict, rows: list, errs: dict, seed: int) -> list:
     x = torch.randn((B,) + key[1], generator=gen, device="cuda", dtype=dtype)
     xq, sx = qconv.quant_act(x, m.cp)
     plain_act = once_ms(lambda: qconv.quant_act_reference(x, m.cp))
+    act = qconv.quant_act_plan(B, key[1][0], int(np.prod(key[1][1:])),
+                               dtype.itemsize,
+                               qconv.cluster_cap(0, dtype == torch.bfloat16))
     plain_conv = once_ms(lambda: qconv.qconv_reference(
         xq, m.wp, sx, m.sw, m.bias, geo, dtype))
     at = f"{top['site']}, {list(key[1])} -> {m.sw.shape[0]}, B = {B}"
@@ -2365,7 +2476,12 @@ def quant_entries(sites: dict, rows: list, errs: dict, seed: int) -> list:
          "cudnn_bf16_ms": top["cudnn_bf16_ms"], "geometries": rows},
         {"name": "quant_act", **common, "max_abs_err": errs["quant_act"],
          "ms": top["quant_act_ms"], "plain_ms": plain_act,
-         "bound_ms": top["quant_act_bound_ms"], "bound_by": "bytes"}]
+         "bound_ms": top["quant_act_bound_ms"], "bound_by": "bytes",
+         "act_route": act.route, "act_k": act.k,
+         "act_plan": qconv.describe_act_plan(act),
+         "act_clusters_resident": qconv.act_occupancy(
+             dtype == torch.bfloat16, act.k, act.smem)[0],
+         "act_graph_nodes": nodes}]
 
 
 def quant_random_init(seed: int, smi: str, model):
@@ -2430,6 +2546,7 @@ def cli_quant(seed: int, folder: str, scratch: str, smi: str,
     xo = offset_copy(torch.randn((3, 18, 13, 11), generator=gen,
                                  device="cuda", dtype=odd.dtype), 1)
     err = max(err, check_quant_site(odd, xo), check_qconv_odd(gen))
+    nodes = check_quant_routes(gen)
     fc_in = {}
     fc = next(f[0][1] for k, f in sites.items() if k[0] == "linear")
     hook = fc.register_forward_pre_hook(
@@ -2488,7 +2605,7 @@ def cli_quant(seed: int, folder: str, scratch: str, smi: str,
           f"{B / ms_f * 1e3:.1f} img/s (the trained folder, same call)")
     rows = time_quant_sites(sites, smi, seed)
     errs = dict.fromkeys(errs, max([err] + [r["max_abs_err"] for r in rows]))
-    entries = quant_entries(sites, rows, errs, seed)
+    entries = quant_entries(sites, rows, errs, seed, nodes)
     entries[0]["img_s"] = {"int8": B / ms_q * 1e3, "bf16": B / ms_f * 1e3}
     del qmodel, model, got, want, padded, sites
     torch.cuda.empty_cache()

@@ -5,6 +5,18 @@
 // msml_tpu/core/quantize.py rewrites to int8 (there XLA lowers them); the
 // design notes are in msml_torch/kernels/qconv.py.
 //
+// quant_act, design "v2": one launch, one thread-block cluster of K blocks
+// per sample (the plan, kernels/qconv.py::quant_act_plan, picks K and the
+// pixels P of a block). Block k stages pixels [k P, (k + 1) P) of every
+// channel in shared memory once (16-byte cp.async of the aligned windows
+// that cover each row, so that a row lies in shared memory at its global
+// address modulo 16), takes its abs-max, and the cluster exchanges the blocks' maxima through
+// distributed shared memory: no atomics, no workspace, the same maximum
+// in any order. The codes are then built from shared memory, one 16-byte
+// piece (16 channels of one pixel) a thread, and written with one 16-byte
+// store. A sample too large for 16 blocks' shared memory keeps the first
+// design's two passes (act_amax, then act_quant).
+//
 // qconv_int8, design "v2": the plan (tile, phases, split) is computed by
 // kernels/qconv.py::qconv_plan and passed in; this file picks the tile's
 // template instance. A phase is a stride-(sy, sx) conv over the undilated
@@ -26,15 +38,25 @@
 // Plain C interface for ctypes: every entry point launches on the caller's
 // stream, allocates nothing, and returns the cudaError_t of its launches.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int THREADS = 256;     // 8 warps, every quant_act kernel
+constexpr int THREADS = 256;     // 8 warps, the two-pass kernels
+constexpr int CT = 512;          // threads of a quant_act cluster block
+constexpr int CWARPS = CT / 32;
+constexpr int SKEW = 64;         // bytes between two 16-channel groups' rows
+constexpr int SCRATCH = 128;     // bytes after the staged data: the warps'
+                                 // maxima, then the block's
+constexpr int MAX_CLUSTER = 16;  // blocks of a cluster (non-portable > 8)
+constexpr int MAX_SMEM = 232448; // an H100 block's opt-in shared memory
 constexpr int AMAX_PER_THREAD = 16;
 constexpr int QT_PIX = 64;       // pixels of one quantize tile
 constexpr int QT_CH = 32;        // channels of one quantize tile (= CP_ALIGN)
@@ -56,11 +78,38 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-// clip(rint(v / s), -127, 127): IEEE division, round half to even
-__device__ __forceinline__ uint32_t quant_byte(float v, float s) {
-  const float q = fminf(fmaxf(rintf(__fdiv_rn(v, s)), -127.f), 127.f);
-  return static_cast<uint32_t>(static_cast<uint8_t>(
-      static_cast<int8_t>(__float2int_rn(q))));
+// A sample's scale s as the codes divide by it: s and y = RN(1 / s); an
+// infinite s (an infinite input) as (FLT_MAX, 0), which gives v / s's 0
+// for a finite v and NaN for an infinite one, as IEEE division does
+struct Divisor {
+  float s, y;
+};
+__device__ __forceinline__ Divisor divisor(float s) {
+  return isinf(s) ? Divisor{3.402823466e38f, 0.f}
+                  : Divisor{s, __frcp_rn(s)};
+}
+
+// clip(rint(v / s), -127, 127) in the low byte of the returned bits (the
+// rest is not zero): v / s as IEEE division rounds it, from q = RN(v y)
+// and one FMA (Markstein: the residual v - s q is exact, and RN(q + (v -
+// s q) y) is the correctly rounded quotient; a quotient too small for
+// that rounds to code 0 either way), then the clip and rint by adding 1.5
+// 2^23 (round half to even, as rintf; the low byte is then the code).
+// Five FMA-pipe instructions: IEEE division, rintf and the conversion to
+// an integer would each take the 16-lane conversion pipe, which bound the
+// first design (tests/test_torch_quant_act_plan.py holds the two equal).
+__device__ __forceinline__ uint32_t code_bits(float v, Divisor d) {
+  const float q = __fmul_rn(v, d.y);
+  const float t = __fmaf_rn(__fmaf_rn(-q, d.s, v), d.y, q);
+  return __float_as_uint(
+      __fadd_rn(fminf(fmaxf(t, -127.f), 127.f), 12582912.f));
+}
+
+// the low bytes of a, b, c, d as one little-endian word
+__device__ __forceinline__ uint32_t pack4(uint32_t a, uint32_t b, uint32_t c,
+                                          uint32_t d) {
+  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040),
+                     0x5410);
 }
 
 // max |x| over the c * hw elements of each sample, as the bits of a
@@ -110,19 +159,20 @@ act_quant(const T* __restrict__ x, int8_t* __restrict__ xq,
   const int n = blockIdx.z, p0 = blockIdx.x * QT_PIX, c0 = blockIdx.y * QT_CH;
   const float s = act_scale(amax, n);
   if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) sx[n] = s;
+  const Divisor d = divisor(s);
   const int t = threadIdx.x, p = t % QT_PIX, g = t / QT_PIX;
   const T* xn = x + (size_t)n * c * hw;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    uint32_t word = 0;
+    uint32_t b[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int ch = c0 + 16 * half + 4 * g + i;
       float v = 0.f;
       if (ch < c && p0 + p < hw) v = to_f32(xn[(size_t)ch * hw + p0 + p]);
-      word |= quant_byte(v, s) << (8 * i);
+      b[i] = code_bits(v, d);
     }
-    tile[p * 9 + 4 * half + g] = word;
+    tile[p * 9 + 4 * half + g] = pack4(b[0], b[1], b[2], b[3]);
   }
   __syncthreads();
   if (t < 2 * QT_PIX) {
@@ -134,28 +184,6 @@ act_quant(const T* __restrict__ x, int8_t* __restrict__ xq,
           make_uint4(src[0], src[1], src[2], src[3]);
     }
   }
-}
-
-// hw == 1 (the fc's input, (n, c)): the layout does not change; thread
-// writes codes 4 i .. 4 i + 3 of its sample as one word
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-act_quant_flat(const T* __restrict__ x, int8_t* __restrict__ xq,
-               float* __restrict__ sx, const unsigned* __restrict__ amax,
-               int c, int cp) {
-  const int n = blockIdx.y;
-  const float s = act_scale(amax, n);
-  if (blockIdx.x == 0 && threadIdx.x == 0) sx[n] = s;
-  const int i = blockIdx.x * THREADS + threadIdx.x;
-  if (4 * i >= cp) return;
-  const T* xn = x + (size_t)n * c;
-  uint32_t word = 0;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int ch = 4 * i + j;
-    word |= quant_byte(ch < c ? to_f32(xn[ch]) : 0.f, s) << (8 * j);
-  }
-  reinterpret_cast<uint32_t*>(xq + (size_t)n * cp)[i] = word;
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -172,6 +200,276 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__host__ __device__ inline long long round16(long long v) {
+  return (v + 15) / 16 * 16;
+}
+
+// Bytes of a quant_act cluster block's dynamic shared memory (the plan's,
+// kernels/qconv.py::act_smem). hw == 1 (the fc's (n, c)): the sample's c
+// elements at their global address modulo 16. Else c rows of rowb bytes,
+// each 16-channel group SKEW bytes after the previous one's end (row ch at
+// ch rowb + SKEW (ch / 16)), each row holding the block's pixels at their
+// global address modulo 16; then the rows' offsets (an int each). Then
+// SCRATCH.
+__host__ __device__ inline long long act_smem(int c, int hw, int rowb,
+                                              int esize) {
+  if (hw == 1) return round16((long long)c * esize) + 16 + SCRATCH;
+  return (long long)c * rowb + SKEW * ((c - 1) >> 4) + round16(4LL * c)
+         + SCRATCH;
+}
+
+// max(m, |v|) over the 16 bytes at p, T elements
+__device__ __forceinline__ float max16(const uint8_t* p, float m, float*) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  return fmaxf(fmaxf(fmaxf(m, fabsf(v.x)), fmaxf(fabsf(v.y), fabsf(v.z))),
+               fabsf(v.w));
+}
+__device__ __forceinline__ __nv_bfloat162 abs2(uint32_t w) {
+  const uint32_t a = w & 0x7fff7fffu;
+  return *reinterpret_cast<const __nv_bfloat162*>(&a);
+}
+// bf16: pairs by __hmax2, which like fmaxf drops a NaN for the other input
+__device__ __forceinline__ float max16(const uint8_t* p, float m,
+                                       __nv_bfloat16*) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162 h = __hmax2(__hmax2(abs2(v.x), abs2(v.y)),
+                                   __hmax2(abs2(v.z), abs2(v.w)));
+  return fmaxf(m, fmaxf(__low2float(h), __high2float(h)));
+}
+
+// max(m, |v|) over the T elements of the 16 bytes at p whose bytes lie in
+// [lo, hi) (byte offsets within the 16)
+template <typename T>
+__device__ __forceinline__ float max16_in(const uint8_t* p, float m, int lo,
+                                          int hi) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int b = 0; b < 16; b += (int)sizeof(T)) {
+    const uint32_t word = w[b >> 2];
+    const float e = sizeof(T) == 4 ? __uint_as_float(word)
+                    : __uint_as_float((b & 2) ? word & 0xffff0000u
+                                              : word << 16);
+    if (b >= lo && b < hi) m = fmaxf(m, fabsf(e));
+  }
+  return m;
+}
+
+// The 16 codes of channels cb .. cb + 15 (zero from c on, nv real ones)
+// of one pixel, packed little-endian: channel cb + j's element at at(j)
+template <typename T, bool FULL, typename At>
+__device__ __forceinline__ uint4 piece(At at, int nv, Divisor d) {
+  uint32_t b[16];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    float v = 0.f;
+    if (FULL || j < nv) v = to_f32(*reinterpret_cast<const T*>(at(j)));
+    b[j] = code_bits(v, d);
+  }
+  return make_uint4(pack4(b[0], b[1], b[2], b[3]),
+                    pack4(b[4], b[5], b[6], b[7]),
+                    pack4(b[8], b[9], b[10], b[11]),
+                    pack4(b[12], b[13], b[14], b[15]));
+}
+
+// quant_act's cluster route: block k of sample n (cluster rank k of K =
+// gridDim.x, blockIdx.y = n) owns pixels [k p, min(hw, (k + 1) p)).
+//  1. Stage: row ch (the flat sample: one row of c elements) is bytes
+//     [g0, g0 + bytes) of x; its 16-byte windows (g0 & ~15) + 16 i go
+//     whole by cp.async to the row's base + 16 i, so that the row starts
+//     at g0's address modulo 16 (the table keeps where). A window
+//     straddling the row's ends is 16-byte aligned, so it lies in one page
+//     with the row's bytes; its other bytes are never read as data. A row
+//     is taken by a group of lanes, the least power of two that covers its
+//     windows (at most a warp; the flat sample by all threads). Then each
+//     thread's max |v| over the row bytes of the windows it copied.
+//  2. Reduce: warp shuffles, the block's warps through shared memory, and
+//     with K > 1 every block's maximum read by each warp through
+//     distributed shared memory after one cluster barrier. Block 0 writes
+//     sx[n].
+//  3. Codes: a warp takes 16 pixels x 32 channels, lane (pixel l % 16,
+//     channels 16 (l / 16) ..); at each of 16 steps the two half-warps read
+//     16 consecutive pixels of channels 16 apart, whose rows SKEW puts 64
+//     bytes apart modulo 128 (16 rowb is a multiple of 256): no bank
+//     conflict, and the two 16-byte pieces of a pixel make one 32-byte
+//     sector of xq. hw == 1: thread g builds piece g of the (n, cp) row;
+//     lane l reads channel 16 g + (j + r) % 16 at step j (r = l / 2, bf16
+//     2 (l / 4): 32 distinct banks) and rotates the piece back by r bytes.
+template <typename T>
+__global__ void __launch_bounds__(CT, 2)
+act_cluster(const T* __restrict__ x, int8_t* __restrict__ xq,
+            float* __restrict__ sx, int c, int hw, int cp, int p,
+            int rowb) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  constexpr int ES = sizeof(T);
+  const int k = blockIdx.x, K = gridDim.x, n = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const bool flat = hw == 1;
+  const int p0 = k * p, L = max(0, min(hw, p0 + p) - p0);
+  const uint8_t* const xn =
+      reinterpret_cast<const uint8_t*>(x + (size_t)n * c * hw);
+  const int rows_end = c * rowb + SKEW * ((c - 1) >> 4);
+  int* const table = reinterpret_cast<int*>(smem + rows_end);
+  float* const slots = reinterpret_cast<float*>(
+      smem + (flat ? (int)round16(c * ES) + 16
+                   : rows_end + (int)round16(4 * c)));
+  const int bytes = (flat ? c : L) * ES;  // a row's
+  // a row's lanes (the flat sample's: all threads), and which row group
+  // and lane of it this thread is
+  const int windows = flat ? CT : rowb / 16;
+  const int lanes = flat ? CT
+                    : windows <= 1 ? 1 : min(32, 1 << (32 - __clz(windows - 1)));
+  const int groups = CT / lanes, grp = tid / lanes, gl = tid - grp * lanes;
+  const int rows = bytes > 0 ? (flat ? 1 : c) : 0;
+  auto row_src = [&](int ch) {
+    return flat ? xn : xn + ((size_t)ch * hw + p0) * ES;
+  };
+  auto row_base = [&](int ch) {
+    return flat ? 0 : ch * rowb + SKEW * (ch >> 4);
+  };
+
+  // 1. stage, then the max of the row bytes of the windows this thread
+  // copied
+  for (int ch = grp; ch < rows; ch += groups) {
+    const uint8_t* const g0 = row_src(ch);
+    const int a = static_cast<int>(reinterpret_cast<uintptr_t>(g0) & 15);
+    uint8_t* const dst = smem + row_base(ch);
+    if (gl == 0 && !flat) table[ch] = row_base(ch) + a;
+    for (int i = gl; 16 * i < a + bytes; i += lanes)
+      cp_async16(dst + 16 * i, g0 - a + 16 * i, true);
+  }
+  // this thread's copies have landed (the clobber keeps the reads below)
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  float m = 0.f;
+  for (int ch = grp; ch < rows; ch += groups) {
+    const int a = static_cast<int>(
+        reinterpret_cast<uintptr_t>(row_src(ch)) & 15);
+    const uint8_t* const src = smem + row_base(ch);
+    for (int i = gl; 16 * i < a + bytes; i += lanes) {
+      const int lo = a - 16 * i, hi = a + bytes - 16 * i;  // the row's bytes
+      m = lo <= 0 && hi >= 16
+          ? max16(src + 16 * i, m, static_cast<T*>(nullptr))
+          : max16_in<T>(src + 16 * i, m, lo, hi);
+    }
+  }
+
+  // 2. the sample's abs-max
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  if (lane == 0) slots[warp] = m;
+  __syncthreads();  // the slots, the table and every staged byte
+  if (warp == 0) {
+    float v = lane < CWARPS ? slots[lane] : 0.f;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+    if (lane == 0) slots[CWARPS] = v;
+  }
+  float amax;
+  if (K > 1) {
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();  // every block's maximum is in its slot
+    amax = lane < K ? *cluster.map_shared_rank(slots + CWARPS, lane) : 0.f;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+    // done with the peers' slots; the matching wait comes before the
+    // exit, so no block leaves while a peer may still read its slot
+    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  } else {
+    __syncthreads();
+    amax = slots[CWARPS];
+  }
+  const float scale = fmaxf(__fmul_rn(amax, inv_qmax()), 1e-12f);
+  if (k == 0 && tid == 0) sx[n] = scale;
+  const Divisor d = divisor(scale);
+
+  // 3. the codes, 16-byte pieces
+  if (flat) {
+    // lane l reads its piece's channels from the r-th on: r = l / 2 for
+    // float32, 2 (l / 4) for bf16 (its two elements a word), whatever the
+    // sample's start modulo 16: 32 distinct banks at every step
+    const int r = (lane / (8 / ES)) * (4 / ES), kw = r >> 2, sh = 8 * (r & 3);
+    const uint8_t* const row =
+        smem + static_cast<int>(reinterpret_cast<uintptr_t>(xn) & 15);
+    int8_t* const out = xq + (size_t)n * cp;
+    for (int g = tid; g < (cp >> 4); g += CT) {
+      int off[16];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) off[j] = (16 * g + ((j + r) & 15)) * ES;
+      const int nv = c - 16 * g;
+      // byte j: channel 16 g + (j + r) % 16 (nv counts the real ones from
+      // channel 16 g, which the rotation scatters: test each)
+      uint32_t bits[16];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const float v = ((j + r) & 15) < nv
+            ? to_f32(*reinterpret_cast<const T*>(row + off[j])) : 0.f;
+        bits[j] = code_bits(v, d);
+      }
+      // rotate the 16 bytes up by r: words by r / 4, then bytes by r % 4
+      uint32_t x0 = pack4(bits[0], bits[1], bits[2], bits[3]);
+      uint32_t x1 = pack4(bits[4], bits[5], bits[6], bits[7]);
+      uint32_t x2 = pack4(bits[8], bits[9], bits[10], bits[11]);
+      uint32_t x3 = pack4(bits[12], bits[13], bits[14], bits[15]);
+      if (kw & 1) {
+        const uint32_t t = x3;
+        x3 = x2;
+        x2 = x1;
+        x1 = x0;
+        x0 = t;
+      }
+      if (kw & 2) {
+        uint32_t t = x0;
+        x0 = x2;
+        x2 = t;
+        t = x1;
+        x1 = x3;
+        x3 = t;
+      }
+      *reinterpret_cast<uint4*>(out + 16 * g) = make_uint4(
+          __funnelshift_l(x3, x0, sh), __funnelshift_l(x0, x1, sh),
+          __funnelshift_l(x1, x2, sh), __funnelshift_l(x2, x3, sh));
+    }
+  } else {
+    const int pl = lane & 15, gl2 = lane >> 4;
+    const int npb = (L + 15) >> 4, g2 = cp >> 5;
+    int8_t* const out = xq + ((size_t)n * hw + p0) * cp;
+    // every row of the block at one address modulo 16 (hw and p whole
+    // 16-byte multiples): channel cb + j at the group's first row + j rowb;
+    // else the table's offsets
+    const bool even = (hw * ES) % 16 == 0 && (p * ES) % 16 == 0;
+    const int a0 = static_cast<int>(
+        reinterpret_cast<uintptr_t>(row_src(0)) & 15);
+    int cur = -1, off[16];
+    for (int t = warp; t < npb * g2; t += CWARPS) {
+      const int pb = t / g2, gp = t - pb * g2;
+      const int cb = 32 * gp + 16 * gl2, nv = c - cb;
+      const int pix = 16 * pb + pl;
+      if (pix >= L) continue;
+      uint4 codes;
+      if (even) {
+        const uint8_t* const first = smem + row_base(cb) + a0 + pix * ES;
+        auto at = [&](int j) { return first + j * rowb; };
+        codes = nv >= 16 ? piece<T, true>(at, nv, d)
+                         : piece<T, false>(at, nv, d);
+      } else {
+        if (gp != cur) {  // a warp keeps its channels while g2 divides
+          cur = gp;       // CWARPS
+#pragma unroll
+          for (int j = 0; j < 16; ++j) off[j] = j < nv ? table[cb + j] : 0;
+        }
+        auto at = [&](int j) { return smem + off[j] + pix * ES; };
+        codes = nv >= 16 ? piece<T, true>(at, nv, d)
+                         : piece<T, false>(at, nv, d);
+      }
+      *reinterpret_cast<uint4*>(out + (size_t)pix * cp + cb) = codes;
+    }
+  }
+  if (K > 1) asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 // four 8 x 8 b16 matrices: lanes 8 j .. 8 j + 7 give the row addresses of
@@ -561,46 +859,147 @@ cudaError_t launch_tile(int bf16, const int8_t* x, const int8_t* wp,
               : launch_qconv<BM, BN, 0>(x, wp, sx, sw, bias, y, ws, g, s);
 }
 
+// act_cluster's attributes, once a device and process at its first use
+// (before any capture): all of a block's shared memory, clusters of 16
+template <typename T>
+cudaError_t cluster_attributes() {
+  static bool attribute_set[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (attribute_set[dev]) return cudaSuccess;
+  if ((err = cudaFuncSetAttribute(act_cluster<T>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  MAX_SMEM)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(
+           act_cluster<T>, cudaFuncAttributeNonPortableClusterSizeAllowed,
+           1)) != cudaSuccess)
+    return err;
+  attribute_set[dev] = true;
+  return cudaSuccess;
+}
+
+cudaLaunchConfig_t cluster_config(int n, int k, int smem,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(k, n);
+  cfg.blockDim = dim3(CT);
+  cfg.dynamicSmemBytes = smem;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = k;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = k > 1 ? 1 : 0;  // a block alone needs no cluster
+  return cfg;
+}
+
+template <typename T>
+cudaError_t launch_cluster(const T* x, int8_t* xq, float* sx, int n, int c,
+                           int hw, int cp, const int* plan, cudaStream_t s) {
+  cudaError_t err = cluster_attributes<T>();
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = cluster_config(n, plan[0], plan[3], &attr);
+  cfg.stream = s;
+  if ((err = cudaLaunchKernelEx(&cfg, act_cluster<T>, x, xq, sx, c, hw, cp,
+                                plan[1], plan[2])) != cudaSuccess)
+    return err;
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t cluster_occupancy(int k, int smem, int* clusters,
+                              int* blocks_per_sm) {
+  cudaError_t err = cluster_attributes<T>();
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = cluster_config(1, k, smem, &attr);
+  cfg.numAttrs = 1;  // the query wants a cluster shape, k = 1 too
+  if ((err = cudaOccupancyMaxActiveClusters(clusters, act_cluster<T>,
+                                            &cfg)) != cudaSuccess)
+    return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, act_cluster<T>, CT, smem);
+}
+
 }  // namespace
 
 extern "C" {
 
 // (xq, sx) = quant_act(x): x (n, c, hw) float32 (bf16 == 0) or bfloat16,
 // xq int8 (n, hw, cp), cp a multiple of 32 >= c, 16-byte aligned; sx (n,)
-// float32; amax (n,) unsigned, a workspace this call zeroes.
-int quant_act(const void* x, void* xq, void* sx, void* amax, int n, int c,
-              int hw, int cp, int bf16, void* stream) {
+// float32. `plan` (host memory, kernels/qconv.py::ActPlan.array): k, p,
+// rowb, smem. k >= 1: the cluster route, one launch of n clusters of k
+// blocks, each owning p pixels, with rows of rowb bytes and smem bytes of
+// shared memory (act_smem's); amax is not used. k == 0: the two-pass
+// route, amax (n,) unsigned a workspace this call zeroes.
+int quant_act(const void* x, void* xq, void* sx, void* amax,
+              const void* plan, int n, int c, int hw, int cp, int bf16,
+              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* pl = static_cast<const int*>(plan);
+  const int k = pl[0], p = pl[1], rowb = pl[2], smem = pl[3];
+  const int esize = bf16 ? 2 : 4;
   if (n < 1 || n > 65535 || c < 1 || hw < 1 || cp % CP_ALIGN != 0 ||
-      cp < c || cp / QT_CH > 65535 ||
-      reinterpret_cast<uintptr_t>(xq) % 16 != 0)
+      cp < c || reinterpret_cast<uintptr_t>(xq) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(x) % esize != 0)
     return (int)cudaErrorInvalidValue;
-  auto* am = static_cast<unsigned*>(amax);
   auto* q = static_cast<int8_t*>(xq);
   auto* scale = static_cast<float*>(sx);
-  cudaError_t err = cudaMemsetAsync(am, 0, sizeof(unsigned) * n, s);
-  if (err != cudaSuccess) return (int)err;
-  const long long per = (long long)c * hw;
-  const dim3 agrid((unsigned)((per + THREADS * AMAX_PER_THREAD - 1)
-                              / (THREADS * AMAX_PER_THREAD)), n);
-  const dim3 qgrid((hw + QT_PIX - 1) / QT_PIX, cp / QT_CH, n);
-  const dim3 fgrid((cp / 4 + THREADS - 1) / THREADS, n);
-#define ACT_LAUNCH(T)                                                        \
+  cudaError_t err;
+  if (k == 0) {
+    if (amax == nullptr || cp / QT_CH > 65535)
+      return (int)cudaErrorInvalidValue;
+    auto* am = static_cast<unsigned*>(amax);
+    if ((err = cudaMemsetAsync(am, 0, sizeof(unsigned) * n, s)) !=
+        cudaSuccess)
+      return (int)err;
+    const long long per = (long long)c * hw;
+    const dim3 agrid((unsigned)((per + THREADS * AMAX_PER_THREAD - 1)
+                                / (THREADS * AMAX_PER_THREAD)), n);
+    const dim3 qgrid((hw + QT_PIX - 1) / QT_PIX, cp / QT_CH, n);
+#define TWO_PASS(T)                                                          \
   act_amax<T><<<agrid, THREADS, 0, s>>>(static_cast<const T*>(x), am, per); \
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;           \
-  if (hw == 1)                                                              \
-    act_quant_flat<T><<<fgrid, THREADS, 0, s>>>(static_cast<const T*>(x), q, \
-                                                scale, am, c, cp);          \
-  else                                                                      \
-    act_quant<T><<<qgrid, THREADS, 0, s>>>(static_cast<const T*>(x), q,     \
-                                           scale, am, c, hw, cp)
-  if (bf16) {
-    ACT_LAUNCH(__nv_bfloat16);
-  } else {
-    ACT_LAUNCH(float);
+  act_quant<T><<<qgrid, THREADS, 0, s>>>(static_cast<const T*>(x), q, scale, \
+                                         am, c, hw, cp)
+    if (bf16) {
+      TWO_PASS(__nv_bfloat16);
+    } else {
+      TWO_PASS(float);
+    }
+#undef TWO_PASS
+    return (int)cudaGetLastError();
   }
-#undef ACT_LAUNCH
-  return (int)cudaGetLastError();
+  // the plan's layout: every pixel owned by one block, rows that hold a
+  // block's pixels wherever they start modulo 16, the shared memory
+  // act_smem gives, the fc's input flat in one block
+  if ((k & (k - 1)) != 0 || k > MAX_CLUSTER || p < 1 ||
+      (long long)k * p < hw ||
+      (hw == 1 && (k != 1 || rowb != 0)) ||
+      (hw > 1 && (rowb % 16 != 0 ||
+                   rowb < round16((long long)p * esize) + 16)) ||
+      smem > MAX_SMEM || smem != act_smem(c, hw, rowb, esize))
+    return (int)cudaErrorInvalidValue;
+  return (int)(bf16 ? launch_cluster(static_cast<const __nv_bfloat16*>(x),
+                                     q, scale, n, c, hw, cp, pl, s)
+                    : launch_cluster(static_cast<const float*>(x), q, scale,
+                                     n, c, hw, cp, pl, s));
+}
+
+// How many clusters of k blocks of act_cluster (bf16 or float32 input),
+// each with smem bytes of shared memory, the card holds at once, and how
+// many such blocks an SM holds.
+int quant_act_occupancy(int bf16, int k, int smem, int* clusters,
+                        int* blocks_per_sm) {
+  if (k < 1 || k > MAX_CLUSTER || smem < 0 || smem > MAX_SMEM)
+    return (int)cudaErrorInvalidValue;
+  return (int)(bf16 ? cluster_occupancy<__nv_bfloat16>(k, smem, clusters,
+                                                       blocks_per_sm)
+                    : cluster_occupancy<float>(k, smem, clusters,
+                                               blocks_per_sm));
 }
 
 // y = qconv_int8(xq, wp, sx, sw, bias): xq int8 (n, h, w, cp), wp int8

@@ -11,7 +11,9 @@ port runs them here, as CUDA C++ for `sm_90a` (`csrc/qconv_int8.cu`):
                           xq (N, H, W, cp) int8, channels last, channels
                           >= C zero; sx (N,) float32. sx = max(amax *
                           f32(1 / 127), 1e-12) with amax over each sample's
-                          non-batch elements; xq = clip(rint(x / sx), +-127)
+                          non-batch elements; xq = clip(rint(x / sx), +-127).
+                          One launch: a thread-block cluster a sample
+                          (`quant_act_plan`)
   qconv_int8(xq, wp, sx, sw, bias, geometry, out_dtype)
                           y (N, Co, Ho, Wo) = float32(conv(xq, w)) * (sx[n]
                           * sw[co]) in out_dtype (float32 or bfloat16), plus
@@ -38,13 +40,72 @@ are exact int32 on both sides, so the codes and the outputs are bit-equal
 to the reference's.
 
 Design:
-- `quant_act` is two launches, counted as one: a per-sample abs-max
-  (`atomicMax` on the float's bits, so the result does not depend on the
-  order the blocks run in), then a pass that quantizes tiles of 32
-  channels x 64 pixels, read along the pixels and written channels last
-  as 16-byte rows through shared memory (an elementwise pass for the fc's
-  (N, C) input, whose layout does not change). It is CUDA C++ rather than
-  Triton, as the route this port takes for every new kernel.
+- `quant_act`, design "v2": one launch, with no workspace, memset or
+  atomic. The bound is bytes: x read once and xq written once. The first
+  design read x twice (an abs-max pass, then the codes) and cost three
+  graph nodes (a memset of the abs-max workspace and two kernels). JAX's
+  scale is one per sample, so no code can be written before the maximum
+  over the whole sample is known; v2 holds the sample on chip while it
+  finds it. Its plan (`quant_act_plan`, Python, handed to the C entry
+  point as int32s and tested on the CPU in
+  tests/test_torch_quant_act_plan.py) gives each sample a thread-block
+  cluster of K = 1, 2, 4, 8 or 16 blocks of 512 threads; block k owns
+  pixels [k P, (k + 1) P) of every channel (P a multiple of 8), so its
+  output xq[n, kP:(k+1)P, :] is one contiguous range. K is the least
+  whose block fits 113 KB of shared memory (two blocks an SM), else the
+  least that fits a block's 227 KB; K never exceeds the largest cluster
+  the card places (`cluster_cap`, `cudaOccupancyMaxActiveClusters` on the
+  card). At B = 512 in bf16: 64 x 112² takes K = 16, P = 784 (101,952 B a
+  block); 64 x 56² K = 4; 64 x 28² and the smaller inputs K = 1 or 2;
+  the fc's (N, 25,088) one block holding the sample flat.
+  * Staging: a row (one channel's P pixels) is copied once by 16-byte
+    `cp.async` of the aligned windows that cover it, the windows at its
+    ends whole too: an aligned 16-byte window lies in one page with the
+    row's bytes, and its other bytes are never read as data. So a row lies
+    in shared memory at its global address modulo 16, and a 14² bf16
+    plane of 392 B or a sample at an odd multiple of 4 B stages like an
+    aligned one. A row is taken by a group of lanes, the least power of
+    two that covers its windows (the flat sample by all threads). Copying
+    a row's head and tail elements through registers instead made each
+    row wait on global memory.
+  * The maximum: each thread over the row bytes of the windows it copied
+    (bf16 pairs by `__hmax2`, which like `fmaxf` drops a NaN), warp
+    shuffles, the warps through shared memory, and with K > 1 each block's
+    maximum read by every warp through distributed shared memory after one
+    cluster barrier: the same maximum in any order, bit-equal to the
+    first design's.
+  * Codes: a warp builds 16 pixels x 32 channels, lane l one 16-byte
+    piece (pixel l % 16, channels 16 (l / 16) ..) with one 16-byte store;
+    each pair of lanes writes a whole 32-byte sector of xq. The two
+    half-warps read channels 16 apart; each 16-channel group of rows
+    starts 64 bytes after the previous one's end (a skew, not a pad of
+    every row), so that the two 16-pixel runs fall 64 bytes apart modulo
+    128: no bank conflict. Where every row of the block starts at one
+    address modulo 16 (hw and P whole 16-byte multiples), channel j of a
+    group lies j rows after its first; else a table of row offsets. The
+    fc's flat row: thread g builds piece g, lane l reading channel 16 g +
+    (j + r) % 16 at step j, r = l / 2 for float32 and 2 (l / 4) for bf16
+    (32 distinct banks from any start modulo 16), and rotating the 16
+    bytes back by r before its store.
+  * The arithmetic: x / sx as IEEE division gives it, from y = RN(1 / sx)
+    once a block, q = RN(x y) and one FMA (Markstein's correction), then
+    the clip and rint by adding 1.5 2^23, whose low byte is the code: five
+    FMA-pipe instructions. The first design's `__fdiv_rn`, `rintf` and
+    `__float2int_rn` each take the 16-lane conversion pipe
+    (`tools/quant_act_parts.py` times v2 with them, PERF.md).
+  * A sample over 16 blocks' shared memory (a float32 64 x 128² is
+    4.2 MB) keeps the first design's two passes, picked by shape (K = 0 in
+    the plan); none of arc18_msml's 90 sites takes it, in bf16 or float32.
+  Tried on the card and not kept (PERF.md): persistent clusters
+  that walk the samples, with one buffer or two (staging sample i + 1
+  while coding sample i, one block an SM), neither faster. What bounds v2
+  at the large inputs is not the bytes: a cluster's blocks go through
+  load, maximum, barrier and codes in step, two blocks an SM
+  (`tools/quant_act_parts.py`, PERF.md). The kernel, `act_cluster`
+  (`-Xptxas -v` on the H100's nvcc 12.9; launch bounds 512 threads, 2
+  blocks an SM, so at most 64 registers): registers, shared memory and
+  clusters resident per instance are in PERF.md (`chip_smoke.py` phase 1
+  prints them).
 - `qconv_int8`, design "v2": a GEMM with M = Co, N = the batch's output
   pixels and K = the taps x cp (cp = C rounded up to 32), on
   `mma.sync.m16n8k32.s8.s8.s32`, one launch per call. Its plan
@@ -106,8 +167,11 @@ Design:
   conv 411 MB and 822 MB), the 18 3 x 3 convs of 128 channels or more in
   and out by int8 operations. The design reads each input byte once per tap from
   L2 and writes each output once, coalesced; what it does not yet have:
-  `wgmma` and TMA, reuse of a staged input row across the taps, and
-  `quant_act` folded into the previous op's epilogue (PERF.md).
+  `wgmma` and TMA, and reuse of a staged input row across the taps
+  (PERF.md). `quant_act` cannot be folded into the previous op's epilogue
+  and keep JAX's bits: the scale is one per sample, so no code can be
+  written until the maximum over the whole sample is known, and the fold
+  would still read its input twice.
 
 On a CPU tensor the wrappers run the plain versions, `quant_act_reference`
 and `qconv_reference` (F.conv2d on the int8 values as float64: every int32
@@ -119,6 +183,7 @@ program (`tools/export_serving.py --quant int8`) runs the kernels.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 from typing import NamedTuple, Optional, Sequence, Tuple
@@ -140,6 +205,15 @@ TILES = ((32, 64), (32, 128), (64, 64), (64, 128), (64, 256), (128, 64),
          (128, 128))  # (bm, bn) of the kernel's template instances
 MAX_PHASES = 64  # phases of one launch: dil_h * dil_w at most
 SMS = 132      # streaming multiprocessors of the H100
+# quant_act's cluster route (csrc/qconv_int8.cu: CT, SKEW, SCRATCH)
+ACT_THREADS = 512
+ACT_SKEW = 64     # bytes between two 16-channel groups' rows
+ACT_SCRATCH = 128  # bytes after the staged data: the warps' and the block's
+                   # maxima
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+SMEM_BLOCK = 232448  # an H100 block's opt-in shared memory (227 KB)
+SMEM_PAIR = 115712   # each of two blocks on one SM: (228 KB) / 2 less the
+                     # 1 KB the card reserves a block
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -385,6 +459,77 @@ def qconv_plan(n: int, cp: int, co: int, geometry: Sequence[int]
                      phases)
 
 
+class ActPlan(NamedTuple):
+    """What `quant_act`'s kernel is launched with (`quant_act_plan`)."""
+    k: int      # blocks of a sample's cluster; 0: the two-pass route
+    p: int      # pixels a block owns
+    rowb: int   # bytes of a staged channel row (0: the flat layout, hw = 1)
+    smem: int   # dynamic shared memory of a block
+
+    @property
+    def route(self) -> str:
+        return "cluster" if self.k else "two-pass"
+
+    def array(self) -> np.ndarray:
+        """The C entry point's int32 plan: k, p, rowb, smem."""
+        return np.array(self, dtype=np.int32)
+
+
+TWO_PASS = ActPlan(0, 0, 0, 0)
+
+
+def _round16(v: int) -> int:
+    return -(-v // 16) * 16
+
+
+def act_smem(c: int, hw: int, rowb: int, esize: int) -> int:
+    """Bytes of a cluster block's shared memory (the kernel's `act_smem`).
+    hw = 1: the sample's c elements at their global address modulo 16.
+    Else c rows of rowb bytes, row ch at ch rowb + ACT_SKEW (ch // 16) (a
+    16-channel group ACT_SKEW bytes after the previous one), each holding
+    the block's pixels at their global address modulo 16, then an int
+    offset a row. Then ACT_SCRATCH."""
+    if hw == 1:
+        return _round16(c * esize) + 16 + ACT_SCRATCH
+    return (c * rowb + ACT_SKEW * ((c - 1) // 16) + _round16(4 * c)
+            + ACT_SCRATCH)
+
+
+def quant_act_plan(n: int, c: int, hw: int, esize: int,
+                   cap: int = CLUSTER_SIZES[-1]) -> ActPlan:
+    """`quant_act`'s plan for n samples of c channels x hw pixels of esize
+    bytes, with clusters of at most `cap` blocks (`cluster_cap`).
+
+    hw = 1 (the fc): one block, the sample flat. Else the least K whose
+    block (P = hw, or ceil(hw / K) rounded up to 8, pixels of each channel
+    in rows of P esize rounded up to 16, plus 16 for a start anywhere
+    modulo 16) fits SMEM_PAIR, else the least that fits SMEM_BLOCK. A
+    sample that fits neither takes the two-pass route."""
+    if n < 1 or n > 65535:
+        raise ValueError(f"quant_act: batch of {n} (1 .. 65535)")
+    if hw == 1:
+        smem = act_smem(c, 1, 0, esize)
+        return ActPlan(1, 1, 0, smem) if smem <= SMEM_BLOCK else TWO_PASS
+    for budget in (SMEM_PAIR, SMEM_BLOCK):
+        for k in CLUSTER_SIZES:
+            if k > cap:
+                break
+            p = hw if k == 1 else -(-(-(-hw // k)) // 8) * 8
+            rowb = _round16(p * esize) + 16
+            smem = act_smem(c, hw, rowb, esize)
+            if smem <= budget:
+                return ActPlan(k, p, rowb, smem)
+    return TWO_PASS
+
+
+def describe_act_plan(plan: ActPlan) -> str:
+    """One line: route, cluster, pixels and shared memory of a block."""
+    if plan.k == 0:
+        return "two-pass (act_amax + act_quant)"
+    return (f"cluster of {plan.k}, {plan.p} pixel{'s' if plan.p > 1 else ''}"
+            f" a block{' (flat)' if plan.rowb == 0 else ''}, {plan.smem} B")
+
+
 def _landing(size: int, k: int, stride: int, pad: int, dil: int,
              out: int) -> np.ndarray:
     """The input element of each (output position, tap) pair along one
@@ -399,8 +544,9 @@ def site_work(n: int, shape: Sequence[int], geometry: Sequence[int],
     operations, 2 per real multiply-add (no padding, no dilation holes);
     bytes `qconv_int8` must move (the pixels of xq that some tap lands on
     and the packed weight read once, y written once, the scales); bytes
-    `quant_act` must move (x read once, xq written once)). shape is the
-    input less the batch, (C, H, W) or (C,)."""
+    `quant_act` must move (x read once, xq written once, sx), which is
+    what its cluster route moves: it reads each input byte once). shape
+    is the input less the batch, (C, H, W) or (C,)."""
     ci, h, w = (shape[0], 1, 1) if len(shape) == 1 else shape
     kh, kw, sh, swd, ph, pw, dh, dw, ho, wo = geometry
     cp = padded_channels(ci)
@@ -439,9 +585,44 @@ def _plan_args(n: int, cp: int, co: int, geometry: Tuple[int, ...]):
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = _nvcc.load("qconv_int8")
-    _nvcc.signature(lib.quant_act, pointers=4, ints=5)
+    _nvcc.signature(lib.quant_act, pointers=5, ints=5)
     _nvcc.signature(lib.qconv_int8, pointers=8, ints=16)
+    lib.quant_act_occupancy.argtypes = [ctypes.c_int] * 3 + [
+        ctypes.POINTER(ctypes.c_int)] * 2
+    lib.quant_act_occupancy.restype = ctypes.c_int
     return lib
+
+
+def act_occupancy(bf16: bool, k: int, smem: int) -> Tuple[int, int]:
+    """(clusters of k blocks of `smem` bytes the card holds at once, such
+    blocks an SM holds) for the bf16 or float32 instance, on the current
+    device."""
+    lib = _lib()
+    clusters, per_sm = ctypes.c_int(0), ctypes.c_int(0)
+    err = lib.quant_act_occupancy(int(bf16), k, smem,
+                                  ctypes.byref(clusters),
+                                  ctypes.byref(per_sm))
+    _nvcc.check(lib, err, "quant_act_occupancy")
+    return clusters.value, per_sm.value
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_cap(device_index: int, bf16: bool) -> int:
+    """The largest cluster size the card places with a whole block's
+    shared memory (SMEM_BLOCK) in each block: queried once a device."""
+    with torch.cuda.device(device_index):
+        for k in reversed(CLUSTER_SIZES):
+            if act_occupancy(bf16, k, SMEM_BLOCK)[0] >= 1:
+                return k
+    raise RuntimeError("quant_act: the card places no cluster of one "
+                       f"block with {SMEM_BLOCK} B of shared memory")
+
+
+@functools.lru_cache(maxsize=4096)
+def _act_plan_args(n: int, c: int, hw: int, esize: int, cap: int):
+    """The plan and its int32 array, once a shape."""
+    plan = quant_act_plan(n, c, hw, esize, cap)
+    return plan, plan.array()
 
 
 def _device_of(x: torch.Tensor, what: str) -> str:
@@ -483,14 +664,18 @@ def _quant_act_cuda(x: torch.Tensor, cp: int
                          f"not {x.dtype}")
     x4 = _as_nchw(x).contiguous()
     n, c, h, w = x4.shape
+    bf16 = x.dtype == torch.bfloat16
+    plan, args = _act_plan_args(n, c, h * w, x.element_size(),
+                                cluster_cap(x.device.index, bf16))
     xq = torch.empty((n, h, w, cp), dtype=torch.int8, device=x.device)
     sx = torch.empty((n,), dtype=torch.float32, device=x.device)
-    amax = torch.empty((n,), dtype=torch.int32, device=x.device)
+    amax = (torch.empty((n,), dtype=torch.int32, device=x.device)
+            if plan.k == 0 else None)
     lib = _lib()
     with torch.cuda.device(x.device):
         err = lib.quant_act(x4.data_ptr(), xq.data_ptr(), sx.data_ptr(),
-                            amax.data_ptr(), n, c, h * w, cp,
-                            int(x.dtype == torch.bfloat16),
+                            None if amax is None else amax.data_ptr(),
+                            args.ctypes.data, n, c, h * w, cp, int(bf16),
                             torch.cuda.current_stream().cuda_stream)
     _nvcc.check(lib, err, "quant_act")
     quant_act.launches += 1

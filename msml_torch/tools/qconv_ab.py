@@ -1,34 +1,29 @@
-"""Time `qconv_int8` against another build of its CUDA source, at every
-distinct int8 geometry of arc18_msml's quantized eval forward, on the card.
+"""Time `quant_act` against another build of its CUDA source, at every
+distinct int8 geometry of arc18_msml's quantized eval forward, on the card,
+beside `qconv_int8`, the bounds and cuDNN.
 
     python -m msml_torch.tools.qconv_ab --base <dir>/qconv_int8.cu \\
-        [--strip] [--out FILE.json] [--markdown FILE.md]
+        [--out FILE.json] [--markdown FILE.md]
 
-`--base` is a `csrc/qconv_int8.cu` with the plain C entry point of its
-first design, `qconv_int8(xq, wp, sx, sw, bias, y, n, h, w, cp, co, ho, wo,
-kh, kw, sh, sw, ph, pw, dh, dw, bf16, stream)` (for instance a parent
+`--base` is a `csrc/qconv_int8.cu` with the plain C entry point of
+`quant_act`'s first design, `quant_act(x, xq, sx, amax, n, c, hw, cp, bf16,
+stream)` with `amax` an (n,) workspace it zeroes (for instance a parent
 commit's, unpacked with `git archive` into a gitignored directory). Both
 are built with `kernels/_nvcc.py`'s flags. The geometries are those of
 `configs/arc18_msml.yaml` (random weights from seed 0, bf16, quantized by
 `core/quantize.quantize_eval_model`), each at B = 512 on random inputs.
-Per geometry, in turns base, current, current, base: the device time of
-one call from CUDA graphs of the calls on two inputs (the median of 3
-replays; the smaller of each build's two turns), and both outputs bit
-for bit equal. Beside them: the bound (the larger of the bytes at 3.35
-TB/s and the real int8 operations at 1,979 TOPS, `kernels/qconv.py::
-site_work`), the plan the current kernel was launched with, `quant_act`'s
-time and bound, and cuDNN's bf16 op of the same shape (`F.conv2d`,
-`F.conv_transpose2d`, `F.linear` on random weights: the yardstick, not a
-path of the port). Prints one line per geometry and the sums weighted by
-each geometry's number of sites; `--out` writes the rows as JSON and
-`--markdown` the table of `docs/int8_sites_h100.md`.
-
-`--strip` times only the 112² conv `frb.layer1.0.conv1`,
-`osb.layer1.0.conv1` and `osb.deconv5`, and beside them the base built
-with the stores of its epilogue removed (the accumulators folded into one
-word, stored only if it takes a value it cannot take) and with each
-`mma.sync` replaced by an XOR of its fragments: how the base's time
-splits into the main loop's loads, its MMAs and the stores.
+Per geometry, in turns base, current, current, base: `quant_act`'s device
+time of one call from CUDA graphs of the calls on two inputs (the median
+of 3 replays; the smaller of each build's two turns), both builds' codes
+and scales bit for bit equal. Beside them: `quant_act`'s bound (its bytes
+at 3.35 TB/s, `kernels/qconv.py::site_work`) and plan (`quant_act_plan`),
+then `qconv_int8`'s time, bound (the larger of the bytes at 3.35 TB/s and
+the real int8 operations at 1,979 TOPS) and plan, and cuDNN's bf16 op of
+the same shape (`F.conv2d`, `F.conv_transpose2d`, `F.linear` on random
+weights: the yardstick, not a path of the port). Prints one line per
+geometry and the sums weighted by each geometry's number of sites;
+`--out` writes the rows as JSON and `--markdown` the table of
+`docs/int8_sites_h100.md`.
 """
 
 from __future__ import annotations
@@ -38,69 +33,31 @@ import json
 import os
 import statistics
 import subprocess
-import tempfile
 
 import torch
 
 from msml_torch.kernels import _nvcc, qconv
 
-SPLIT_SITES = ("frb.layer1.0.conv1", "osb.layer1.0.conv1", "osb.deconv5")
 BATCH, SEED = 512, 0       # the quantized eval forward's batch; weights
 HBM_BYTES_PER_S = 3.35e12  # the H100 SXM's published memory rate
 INT8_OPS = 1979e12         # its dense int8 tensor-core peak (operations / s)
 CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "configs", "arc18_msml.yaml")
 
-# the first design's epilogue and MMA, as its source spells them
-_EPILOGUE = "  // epilogue: float(acc) * (sx[n] * sw[co]) and the bias, to OUT"
-_KERNEL_END = "\n}\n\n}  // namespace"
-_NO_STORE = """  // stores stripped: the accumulators folded into one word
-  int sink = 0;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) sink ^= acc[mi][ni][r];
-  if (sink == 0x7fffffff) store(y + t, (float)sink, 1.f, nullptr);"""
-_MMA = "mma_s8(acc[mi][ni], af[mi], bfr[ni]);"
-_NO_MMA = ("acc[mi][ni][0] ^= af[mi][0] ^ af[mi][1] ^ af[mi][2] ^ "
-           "af[mi][3] ^ bfr[ni][0] ^ bfr[ni][1];")
 
-
-def stripped_sources(base: str, scratch: str) -> dict:
-    """{variant: path} of the base source with its stores, or its MMAs,
-    stripped."""
-    with open(base) as f:
-        src = f.read()
-    start, end = src.find(_EPILOGUE), src.find(_KERNEL_END)
-    if start < 0 or end < start or src.count(_MMA) != 1:
-        raise SystemExit(f"{base}: not the first design's source (its "
-                         "epilogue or MMA not found)")
-    out = {}
-    for variant, text in (("no_store", src[:start] + _NO_STORE + src[end:]),
-                          ("no_mma", src.replace(_MMA, _NO_MMA))):
-        path = os.path.join(scratch, f"qconv_int8_{variant}.cu")
-        with open(path, "w") as f:
-            f.write(text)
-        out[variant] = path
-    return out
-
-
-def base_call(lib, xq, m, sx, geo, dtype):
-    """The base build's qconv_int8 on the module m's weights -> y."""
-    kh, kw, sh, swd, ph, pw, dh, dw, ho, wo = geo
-    n, h, w, cp = xq.shape
-    co = m.sw.shape[0]
-    y = torch.empty((n, co, ho, wo), dtype=dtype, device=xq.device)
-    err = lib.qconv_int8(xq.data_ptr(), m.wp.data_ptr(), sx.data_ptr(),
-                         m.sw.data_ptr(),
-                         None if m.bias is None else m.bias.data_ptr(),
-                         y.data_ptr(), n, h, w, cp, co, ho, wo, kh, kw, sh,
-                         swd, ph, pw, dh, dw, int(dtype == torch.bfloat16),
-                         torch.cuda.current_stream().cuda_stream)
-    _nvcc.check(lib, err, "base qconv_int8")
-    return y
+def base_act(lib, x, cp):
+    """The base build's quant_act (the first design) on x -> (xq, sx)."""
+    x4 = x if x.dim() == 4 else x[:, :, None, None]
+    n, c, h, w = x4.shape
+    xq = torch.empty((n, h, w, cp), dtype=torch.int8, device=x.device)
+    sx = torch.empty((n,), dtype=torch.float32, device=x.device)
+    amax = torch.empty((n,), dtype=torch.int32, device=x.device)
+    err = lib.quant_act(x4.data_ptr(), xq.data_ptr(), sx.data_ptr(),
+                        amax.data_ptr(), n, c, h * w, cp,
+                        int(x.dtype == torch.bfloat16),
+                        torch.cuda.current_stream().cuda_stream)
+    _nvcc.check(lib, err, "base quant_act")
+    return xq, sx
 
 
 def graph_ms(fns, replays: int = 3) -> float:
@@ -195,9 +152,9 @@ def markdown(rows: list, total: dict, smi: str, batch: int) -> str:
         return "×".join(map(str, shape))
 
     lines = [
-        "| Site (×sites) | Kind | Input | Out | Kernel | v1 | v2 | bound | by "
-        "| v2 plan | quant_act | bound | cuDNN bf16 |",
-        "|---|---|---|---|---|---|---|---|---|---|---|---|---|"]
+        "| Site (×sites) | Kind | Input | Out | Kernel | quant_act v1 | v2 "
+        "| bound | v2 plan | qconv_int8 | bound | by | plan | cuDNN bf16 |",
+        "|---|---|---|---|---|---|---|---|---|---|---|---|---|---|"]
     for r in rows:
         kh, kw, sh, _, _, _, dh = r["geometry"][:7]
         kernel = f"{kh}×{kw}" + (f" s{sh}" if sh > 1 else "") + (
@@ -205,25 +162,24 @@ def markdown(rows: list, total: dict, smi: str, batch: int) -> str:
         lines.append(
             f"| `{r['site']}` (×{r['sites']}) | {r['kind']} | "
             f"{dims(r['input'])} | {r['out_channels']} | {kernel} | "
-            f"{r['base_ms']:.4f} | {r['current_ms']:.4f} | "
-            f"{r['bound_ms']:.4f} | {r['bound_by']} | {r['plan']} | "
-            f"{r['quant_act_ms']:.4f} | {r['quant_act_bound_ms']:.4f} | "
-            f"{r['cudnn_bf16_ms']:.4f} |")
+            f"{r['act_base_ms']:.4f} | {r['act_ms']:.4f} | "
+            f"{r['act_bound_ms']:.4f} | {r['act_plan']} | "
+            f"{r['qconv_ms']:.4f} | {r['qconv_bound_ms']:.4f} | "
+            f"{r['bound_by']} | {r['plan']} | {r['cudnn_bf16_ms']:.4f} |")
     lines.append("")
     lines.append(
         f"Summed over all {sum(r['sites'] for r in rows)} sites (each "
-        f"geometry × its sites), {smi}, B = {batch}: `qconv_int8` v1 "
-        f"{total['base_ms']:.4f} ms, v2 {total['current_ms']:.4f} ms (bound "
-        f"{total['bound_ms']:.4f}); `quant_act` {total['quant_act_ms']:.4f} "
-        f"ms (bound {total['quant_act_bound_ms']:.4f}); cuDNN bf16 "
-        f"{total['cudnn_bf16_ms']:.4f} ms.")
+        f"geometry × its sites), {smi}, B = {batch}: `quant_act` v1 "
+        f"{total['act_base_ms']:.4f} ms, v2 {total['act_ms']:.4f} ms (bound "
+        f"{total['act_bound_ms']:.4f}); `qconv_int8` "
+        f"{total['qconv_ms']:.4f} ms (bound {total['qconv_bound_ms']:.4f}); "
+        f"cuDNN bf16 {total['cudnn_bf16_ms']:.4f} ms.")
     return "\n".join(lines) + "\n"
 
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--base", required=True)
-    p.add_argument("--strip", action="store_true")
     p.add_argument("--out", help="the rows as JSON")
     p.add_argument("--markdown", help="the table of docs/int8_sites_h100.md")
     args = p.parse_args(argv)
@@ -232,14 +188,8 @@ def main(argv=None):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
-    scratch = tempfile.mkdtemp(prefix="qconv_ab_")
-    sources = {"base": os.path.abspath(args.base)}
-    if args.strip:
-        sources.update(stripped_sources(args.base, scratch))
-    libs = {k: _nvcc.load_source(v, f"qconv_ab_{k}")
-            for k, v in sources.items()}
-    for lib in libs.values():
-        _nvcc.signature(lib.qconv_int8, pointers=6, ints=16)
+    base = _nvcc.load_source(os.path.abspath(args.base), "qconv_ab_base")
+    _nvcc.signature(base.quant_act, pointers=4, ints=5)
     qconv._lib()
     print(smi)
     for name, info in sorted(_nvcc.builds.items()):
@@ -257,73 +207,70 @@ def main(argv=None):
         for key, found in sites.items():
             kind, shape, geo, dtype, _, co = key
             name, m, _ = found[0]
-            if args.strip and name not in SPLIT_SITES:
-                continue
             xs = [torch.randn((BATCH,) + shape, generator=gen,
                               device="cuda", dtype=dtype) for _ in range(2)]
-            qs = [qconv.quant_act(x, m.cp) for x in xs]
-            want = qconv.qconv_int8(qs[0][0], m.wp, qs[0][1], m.sw, m.bias,
-                                    list(geo), dtype)
-            got = base_call(libs["base"], qs[0][0], m, qs[0][1], geo, dtype)
+            want = base_act(base, xs[0], m.cp)
+            got = qconv.quant_act(xs[0], m.cp)
             torch.cuda.synchronize()
-            if not torch.equal(want, got):
+            if not (torch.equal(want[0], got[0])
+                    and torch.equal(want[1], got[1])):
                 raise SystemExit(f"qconv_ab: {name}: base and current "
-                                 "differ")
-
-            def fns(which):
-                if which == "current":
-                    return [lambda q=q: qconv.qconv_int8(
-                        q[0], m.wp, q[1], m.sw, m.bias, list(geo), dtype)
-                        for q in qs]
-                return [lambda q=q: base_call(libs[which], q[0], m, q[1],
-                                              geo, dtype) for q in qs]
-
-            ms = {k: [] for k in ("base", "current")}
+                                 "quant_act differ")
+            fns = {"base": [lambda x=x: base_act(base, x, m.cp)
+                            for x in xs],
+                   "current": [lambda x=x: qconv.quant_act(x, m.cp)
+                               for x in xs]}
+            ms = {k: [] for k in fns}
             for which in ("base", "current", "current", "base"):
-                ms[which].append(graph_ms(fns(which)))
+                ms[which].append(graph_ms(fns[which]))
+            qs = [qconv.quant_act(x, m.cp) for x in xs]
             ops, conv_bytes, act_bytes = qconv.site_work(
                 BATCH, shape, geo, co, xs[0].element_size())
             t_bytes, t_ops = conv_bytes / HBM_BYTES_PER_S, ops / INT8_OPS
+            hw = 1 if len(shape) == 1 else shape[1] * shape[2]
+            act = qconv.quant_act_plan(
+                BATCH, shape[0], hw, xs[0].element_size(),
+                qconv.cluster_cap(0, dtype == torch.bfloat16))
             row = {"site": name, "sites": len(found), "kind": kind,
                    "input": list(shape), "out_channels": co,
-                   "geometry": list(geo), "plan": qconv.describe_plan(
-                       qconv.qconv_plan(BATCH, m.cp, co, geo)),
-                   "base_ms": min(ms["base"]),
-                   "current_ms": min(ms["current"]),
-                   "base_runs": ms["base"], "current_runs": ms["current"],
-                   "bound_ms": max(t_bytes, t_ops) * 1e3,
+                   "geometry": list(geo),
+                   "act_base_ms": min(ms["base"]),
+                   "act_ms": min(ms["current"]),
+                   "act_base_runs": ms["base"],
+                   "act_runs": ms["current"],
+                   "act_bound_ms": act_bytes / HBM_BYTES_PER_S * 1e3,
+                   "act_plan": qconv.describe_act_plan(act),
+                   "act_k": act.k,
+                   "qconv_ms": graph_ms([lambda q=q: qconv.qconv_int8(
+                       q[0], m.wp, q[1], m.sw, m.bias, list(geo), dtype)
+                       for q in qs]),
+                   "qconv_bound_ms": max(t_bytes, t_ops) * 1e3,
                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                   "quant_act_ms": graph_ms(
-                       [lambda x=x: qconv.quant_act(x, m.cp) for x in xs]),
-                   "quant_act_bound_ms": act_bytes / HBM_BYTES_PER_S * 1e3,
+                   "plan": qconv.describe_plan(
+                       qconv.qconv_plan(BATCH, m.cp, co, geo)),
                    "cudnn_bf16_ms": graph_ms(
                        [cudnn_call(m, x.to(torch.bfloat16), gen)
                         for x in xs])}
-            if args.strip:
-                for v in ("no_store", "no_mma"):
-                    row[f"base_{v}_ms"] = graph_ms(fns(v))
             rows.append(row)
             print(f"[ab] {name} (x{len(found)}) {kind} {list(shape)} -> "
-                  f"{co} {list(geo)[:8]}: base {row['base_ms']:.4f} ms, "
-                  f"current {row['current_ms']:.4f} ms ({ms['base']} / "
-                  f"{ms['current']}), bound {row['bound_ms']:.4f} "
-                  f"({row['bound_by']}); quant_act "
-                  f"{row['quant_act_ms']:.4f}; cuDNN bf16 "
-                  f"{row['cudnn_bf16_ms']:.4f}; plan {row['plan']}"
-                  + ("".join(f"; base {v} {row[f'base_{v}_ms']:.4f} ms"
-                             for v in ("no_store", "no_mma"))
-                     if args.strip else ""))
+                  f"{co} {list(geo)[:8]}: quant_act v1 "
+                  f"{row['act_base_ms']:.4f} ms, v2 {row['act_ms']:.4f} ms "
+                  f"({ms['base']} / {ms['current']}), bound "
+                  f"{row['act_bound_ms']:.4f}, {row['act_plan']}; "
+                  f"qconv_int8 {row['qconv_ms']:.4f} / "
+                  f"{row['qconv_bound_ms']:.4f} ({row['bound_by']}); cuDNN "
+                  f"bf16 {row['cudnn_bf16_ms']:.4f}")
             del xs, qs, want, got
             torch.cuda.empty_cache()
     total = {k: sum(r[k] * r["sites"] for r in rows) for k in (
-        "base_ms", "current_ms", "bound_ms", "quant_act_ms",
-        "quant_act_bound_ms", "cudnn_bf16_ms")}
+        "act_base_ms", "act_ms", "act_bound_ms", "qconv_ms",
+        "qconv_bound_ms", "cudnn_bf16_ms")}
     print(f"[ab] {smi}: B = {BATCH}, summed over "
-          f"{sum(r['sites'] for r in rows)} sites: base "
-          f"{total['base_ms']:.4f} ms, current {total['current_ms']:.4f} ms "
-          f"(bound {total['bound_ms']:.4f}); quant_act "
-          f"{total['quant_act_ms']:.4f}; cuDNN bf16 "
-          f"{total['cudnn_bf16_ms']:.4f}")
+          f"{sum(r['sites'] for r in rows)} sites: quant_act v1 "
+          f"{total['act_base_ms']:.4f} ms, v2 {total['act_ms']:.4f} ms "
+          f"(bound {total['act_bound_ms']:.4f}); qconv_int8 "
+          f"{total['qconv_ms']:.4f} (bound {total['qconv_bound_ms']:.4f}); "
+          f"cuDNN bf16 {total['cudnn_bf16_ms']:.4f}")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -427,6 +427,71 @@ def test_qconv_kernels_count_and_refuse(cuda):
         qconv.quant_act(x.double(), 64)
 
 
+# (N, C, H, W, dtype, K of the plan) of each route of `quant_act`: the
+# fc's flat row (hw = 1) in one block, rows in clusters of 1 to 16 blocks,
+# and a sample over 16 blocks' shared memory on the two-pass route (K = 0)
+ACT_ROUTES = {
+    "flat_fc": (3, 25088, 1, 1, torch.bfloat16, 1),
+    "flat_c82_f32": (3, 82, 1, 1, torch.float32, 1),
+    "rows_k1_odd": (3, 18, 13, 11, torch.bfloat16, 1),
+    "rows_k1": (2, 64, 28, 28, torch.bfloat16, 1),
+    "rows_k2": (2, 128, 28, 28, torch.bfloat16, 2),
+    "rows_k4": (2, 64, 56, 56, torch.bfloat16, 4),
+    "rows_k8": (2, 82, 56, 56, torch.bfloat16, 8),
+    "rows_k16": (2, 64, 112, 112, torch.bfloat16, 16),
+    "rows_k16_f32": (2, 64, 112, 112, torch.float32, 16),
+    "two_pass_f32": (2, 64, 128, 128, torch.float32, 0),
+}
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset"])
+@pytest.mark.parametrize("case", ACT_ROUTES)
+def test_quant_act_routes_bit_equal_plain(cuda, case, offset):
+    """Each route of `quant_act`'s plan, on inputs aligned and one element
+    off, with an all-zero sample: codes and scales bit for bit."""
+    from msml_torch.kernels import qconv
+
+    n, c, h, w, dtype, k = ACT_ROUTES[case]
+    plan = qconv.quant_act_plan(n, c, h * w, dtype.itemsize,
+                                qconv.cluster_cap(0, dtype == torch.bfloat16))
+    assert plan.k == k
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn((n, c, h, w), generator=gen, device=cuda)
+    x[0] *= 5.0
+    x[1] = 0.0
+    flat = torch.empty(x.numel() + offset, device=cuda, dtype=dtype)
+    x = flat[offset:].view(x.shape).copy_(x)
+    if h == w == 1:
+        x = x.view(n, c)
+    cp = qconv.padded_channels(c)
+    xq, sx = qconv.quant_act(x, cp)
+    want_q, want_s = qconv.quant_act_reference(x, cp)
+    assert torch.equal(xq, want_q) and torch.equal(sx, want_s)
+
+
+@pytest.mark.parametrize("case", ["flat_fc", "rows_k16", "two_pass_f32"])
+def test_quant_act_graph_nodes(cuda, case):
+    """A captured call is one kernel node on the cluster route (no memset,
+    no workspace), three on the two-pass route."""
+    import ctypes
+
+    from msml_torch.kernels import qconv
+
+    n, c, h, w, dtype, k = ACT_ROUTES[case]
+    x = torch.randn((n, c, h, w), device=cuda).to(dtype)
+    cp = qconv.padded_channels(c)
+    qconv.quant_act(x, cp)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        qconv.quant_act(x, cp)
+    count = ctypes.c_size_t(0)
+    assert ctypes.CDLL("libcudart.so").cudaGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None,
+        ctypes.byref(count)) == 0
+    assert count.value == (1 if k else 3)
+
+
 def test_quantized_model_rows_are_batch_invariant(cuda):
     """A small CNN's int8 copy on the card: a row's features do not depend
     on its batch-mates (zeros or other images), bit for bit."""
