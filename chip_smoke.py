@@ -155,7 +155,29 @@ Phases:
      float artifact), `cli.serve --quant int8` on the folder and the
      int8 artifact's server over HTTP (answers against `runner.infer`
      and each other, launches per forward), and `cli.test --device-sweep
-     --quant int8` on phase 6's 40 pairs, rows beside the float sweep's.
+     --quant int8` on phase 6's 40 pairs, rows beside the float sweep's;
+  12. the peer-KD recipe (configs/arc18_msml_peer_dec.yaml: the frozen
+     iResNet teacher on `ori`, the FM towers with the KD term, the recover
+     decoder; after phase 5, its CLI within phase 6 after 11): (a) its
+     train step at full width, B = 256, 93,431 classes, bf16, 20 steps on
+     the host-float input the yaml runs, 3 with `device_light` (the augment
+     kernel on img and on ori) and one with `decoder_loss_weight` 0.5 (the
+     decoder runs, its weighted loss > 0): every metric finite, kd > 0,
+     each kernel launched as the module sites say (counted from the
+     modules: the student's PReLU pair and conv3x3 forward / dX / dW, the
+     teacher's PReLU and conv3x3 forward only), the teacher's parameters
+     and BN buffers bit-unchanged with no momentum buffer; img/s; (b) its
+     float32 train forward (final_cls, final_seg, kd) on the card (TF32
+     off) against the CPU at B = 4, relative error <= 1e-3; (e) its bf16
+     eval forward at B = 512 in img/s beside phase 3's, launches counted;
+     (c) `cli.train` on it from a procedural rec it writes (host-float
+     batches with ori from spawned workers, 93,431 classes, B = 256) with
+     `peer_weights` = phase 10's frb.npz of phase 6's folder: 4 steps, the
+     teacher bit-equal to the npz, then a `--resume` to step 6; (d) on the
+     folder it wrote, `cli.test --device-sweep` on phase 6's 40 pairs and
+     the host sweep (BB, 1 repeat), launches per forward as the eval sites
+     say, an /embed_batch of 16 through `cli.serve` against the live
+     model, and `--quant int8` with its feature cosine to bf16.
 
 Exits non-zero, without the final line, when CUDA is missing or any check
 fails. Needs no network or PyYAML; phase 9 needs Pillow and OpenCV.
@@ -1108,12 +1130,14 @@ def phase_train_cpu_parity(seed: int, b: int = 4):
           f"{((ug[worst] - uc[worst]).norm() / uc[worst].norm()).item():.2e})")
 
 
-def phase_cli(seed: int, smi: str, steps: int = 20, resume_to: int = 24):
+def phase_cli(seed: int, smi: str, peer_sites: dict, steps: int = 20,
+              resume_to: int = 24):
     """The training CLI on the card, then the sweep, the serving surface,
-    the weights and the int8 quantization on the folder it wrote; ->
+    the weights and the int8 quantization on the folder it wrote, then the
+    peer-KD recipe's CLI with that folder's frb.npz as its teacher; ->
     (launches, img/s of its Speed lines, the sweep's launches, the server's
     launches and kernel errors, the host sweep's launches, phase 11's
-    results)."""
+    results, phase 12's CLI launches)."""
     from msml_torch.cli.train import main, parse_args
     from msml_torch.core.checkpoint import all_steps
     from msml_torch.core.config import Config
@@ -1164,8 +1188,10 @@ def phase_cli(seed: int, smi: str, steps: int = 20, resume_to: int = 24):
         pth = cli_weights(seed, output, out, smi)
         host_launches = cli_host_sweep(seed, output, out, smi, pth)
         quant = cli_quant(seed, output, out, smi, sweep_rows)
+        peer = peer_cli(seed, smi, peer_sites, os.path.join(out, "frb.npz"),
+                        os.path.join(out, "pairs.bin"), out)
     return (launches, speeds, sweep_launches, serve_launches, serve_errs,
-            host_launches, quant)
+            host_launches, quant, peer)
 
 
 def save_ab(seed: int, smi: str, cfg, steps: int = 30):
@@ -2693,6 +2719,410 @@ def cli_quant(seed: int, folder: str, scratch: str, smi: str,
     return entries, launches, sweep_launches, served["folder"][0]
 
 
+# configs/arc18_msml_peer_dec.yaml, the reference's shipped config.yaml (a
+# CPU test pins the equality)
+PEER_DEC = {
+    "dataset": "ms1m-retinaface-t2",
+    "fp16": True,
+    "batch_size": 256,
+    "frb_type": "iresnet18",
+    "osb_type": "unet",
+    "use_osb": True,
+    "fm_layers": [1, 1, 1, 1],
+    "fm_params": [3, 2, "sigmoid", "mul"],
+    "peer_params": {"use_ori": True, "use_conv": True,
+                    "mask_trans": "conv", "use_decoder": True},
+    "header_type": "AMArcFace",
+    "header_params": [64.0, 0.48, 0.0, 0.0],
+    "exp_id": 1,
+    "output_prefix": "arc18_msml_peer_dec",
+}
+PEER_B = 256            # the recipe's batch_size
+PEER_STEPS = 20         # host-float steps of the recipe's train step
+PEER_LIGHT_STEPS = 3    # ... and with device_light
+PEER_CLI_STEPS, PEER_RESUME_TO = 4, 6
+PEER_NW = 8             # the recipe's CLI loader: spawned worker processes
+PEER_REC_IDS, PEER_REC_VIEWS = 200, 10  # 200 x 8 = 1600 train images
+PEER_DECODER_WEIGHT = 0.5  # the step that runs the recover decoder
+
+
+def peer_config(**over):
+    from msml_torch.core.config import Config, config_init
+
+    cfg = Config.from_dict(dict(PEER_DEC, **over))
+    config_init(cfg, make_output_dir=False)
+    return cfg
+
+
+def peer_sites(model) -> dict:
+    """The recipe's kernel sites, counted from its modules: PReLU and
+    routed conv3x3 sites of the student (all but the teacher `frb.peer`)
+    and of the teacher, and the student's PReLU sites in the KD towers
+    (`conv2`), which run only in training."""
+    from msml_torch.nn.common import PReLU, routed_conv_sites
+
+    prelu = [n for n, m in model.named_modules() if isinstance(m, PReLU)]
+    conv = routed_conv_sites(model)
+
+    def teacher(names):
+        return [n for n in names if n.startswith("frb.peer.")]
+
+    return {"prelu": len(prelu) - len(teacher(prelu)),
+            "prelu_teacher": len(teacher(prelu)),
+            "prelu_kd": len([n for n in prelu if n.startswith("frb.fm_ops.")
+                             and ".conv2." in n]),
+            "conv": len(conv) - len(teacher(conv)),
+            "conv_teacher": len(teacher(conv))}
+
+
+def peer_step_launches(s: dict, steps: int, light: bool) -> dict:
+    """Launches of `steps` recipe train steps: the PReLU pair at every
+    student site and the forward at the teacher's; conv3x3 forward and dX
+    at the student's sites, forward only at the teacher's, dW at the
+    student's; with device_light the input stage on img and on ori."""
+    return expect(augment_batch=2 * steps if light else 0,
+                  prelu_fwd=steps * (s["prelu"] + s["prelu_teacher"]),
+                  prelu_bwd=steps * s["prelu"],
+                  conv3x3_fwd=steps * (2 * s["conv"] + s["conv_teacher"]),
+                  conv3x3_dw=steps * s["conv"])
+
+
+def peer_eval_launches(s: dict, forwards: int) -> dict:
+    """Launches of `forwards` eval forwards of the recipe: the student's
+    sites without the KD towers; no teacher."""
+    return expect(prelu_fwd=forwards * (s["prelu"] - s["prelu_kd"]),
+                  conv3x3_fwd=forwards * s["conv"])
+
+
+def teacher_snapshot(model) -> dict:
+    return {k: v.clone() for k, v in model.frb.peer.state_dict().items()}
+
+
+def check_teacher(state, before: dict, what: str):
+    """The teacher's parameters and BN buffers bit-equal to `before`, none
+    of them in the optimizer or with a momentum buffer."""
+    teacher = state.model.frb.peer
+    changed = [k for k, v in teacher.state_dict().items()
+               if not torch.equal(v, before[k])]
+    held = {id(p) for p in state.optimizer.state} | {
+        id(p) for g in state.optimizer.param_groups for p in g["params"]}
+    in_opt = [n for n, p in teacher.named_parameters() if id(p) in held
+              or p.requires_grad]
+    if changed or in_opt or teacher.training:
+        fail(f"{what}: teacher changed {changed[:4]}, in the optimizer "
+             f"{in_opt[:4]}, training {teacher.training}")
+
+
+def phase_peer_train(seed: int, smi: str):
+    """Phase 12 (a): the recipe's train step at full width (B = 256,
+    93,431 classes, bf16): host-float steps as the yaml runs them, then
+    device_light steps, then one step with the recover decoder on;
+    -> (sites, launches per path, img/s)."""
+    from msml_torch.core.config import lr_step_factor
+    from msml_torch.data.synthetic import synthetic_batch
+    from msml_torch.nn.msml import msml_from_config
+    from msml_torch.train.train_step import init_train_state, make_train_step
+
+    t_phase = time.perf_counter()
+    cfg = peer_config()
+    model = msml_from_config(cfg, device="cuda", seed=seed, head=True)
+    sites = peer_sites(model)
+    state = init_train_state(model, cfg, "cuda", seed)
+    before = teacher_snapshot(model)
+    lr = lr_step_factor(cfg, 0)
+    out = {}
+
+    def run(step, batch, steps, light, what):
+        reset_launches()
+        history = [step(state, batch, lr) for _ in range(steps)]
+        torch.cuda.synchronize()
+        launches = read_launches()
+        want = peer_step_launches(sites, steps, light)
+        if launches != want:
+            fail(f"{what}: launches {launches}, expected {want}")
+        for i, m in enumerate(history):
+            bad = [k for k, v in m.items() if not torch.isfinite(v).item()]
+            if bad or not m["kd"].item() > 0:
+                fail(f"{what}: non-finite {bad} or kd {m['kd'].item()} at "
+                     f"step {i}")
+        out[what] = launches
+        return history
+
+    host = synthetic_batch(PEER_B, num_classes=cfg.num_classes, seed=seed)
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in host.items()}
+    step = make_train_step(cfg)
+    history = run(step, batch, PEER_STEPS, False, "peer_train_step")
+    ms = time_ms(lambda: step(state, batch, lr), windows=3, per_window=3)
+    img_s = PEER_B / ms * 1e3
+    last = history[-1]
+    print(f"[12 peer] {smi}: configs/arc18_msml_peer_dec.yaml's train step "
+          f"(frozen teacher, FM towers with KD, decoder), B={PEER_B}, "
+          f"{cfg.num_classes} classes, bf16, host-float input: "
+          f"{PEER_STEPS} steps, then {ms:.2f} ms = {img_s:.1f} img/s "
+          "(median of 3 windows of 3 steps, CUDA events); last step "
+          + ", ".join(f"{k} {last[k].item():.4f}" for k in (
+              "total_loss", "cls_loss", "seg_loss", "kd", "grad_norm")))
+    print(f"[12 peer] sites from the modules: student {sites['prelu']} "
+          f"PReLU ({sites['prelu_kd']} in the KD towers) and "
+          f"{sites['conv']} conv3x3, teacher {sites['prelu_teacher']} PReLU "
+          f"and {sites['conv_teacher']} conv3x3; launches per step "
+          + ", ".join(f"{k} {v // PEER_STEPS}" for k, v in
+                      out["peer_train_step"].items()))
+
+    host8 = synthetic_batch(PEER_B, num_classes=cfg.num_classes, seed=seed,
+                            uint8=True)
+    batch8 = {k: torch.as_tensor(v, device="cuda") for k, v in host8.items()}
+    light = run(make_train_step(peer_config(device_light=True)), batch8,
+                PEER_LIGHT_STEPS, True, "peer_train_step_light")
+    print(f"[12 peer] device_light: {PEER_LIGHT_STEPS} steps on uint8 img "
+          f"and ori, launches " + ", ".join(
+              f"{k} {v // PEER_LIGHT_STEPS}" for k, v in
+              out["peer_train_step_light"].items())
+          + f" per step; kd {light[-1]['kd'].item():.4f}")
+
+    state.model.frb.decoder_loss_weight = PEER_DECODER_WEIGHT
+    dec = state.model.frb.decoder.deconv_out.weight
+    dec_before = dec.detach().clone()
+    try:
+        m = run(step, batch, 1, False, "peer_train_step_decoder")[0]
+    finally:
+        state.model.frb.decoder_loss_weight = 0.0
+    rec = (m["total_loss"] - m["cls_loss"] - cfg.lambda1 * m["seg_loss"]
+           - float(cfg.get("kd_loss_weight", 0.0)) * m["kd"]).item()
+    moved = (dec.detach() - dec_before).abs().max().item()
+    if not (math.isfinite(rec) and rec > 0 and moved > 0):
+        fail(f"decoder step: recover loss {rec}, decoder moved {moved}")
+    print(f"[12 peer] one step with decoder_loss_weight "
+          f"{PEER_DECODER_WEIGHT}: weighted recover loss {rec:.6f} "
+          f"(total - cls - lambda1 seg), deconv_out moved by up to "
+          f"{moved:.3g}; launches as a host-float step")
+    check_teacher(state, before, "peer train step")
+    print(f"[12 peer] the teacher after {state.step} steps: parameters "
+          "and BN buffers bit-equal to their start, no momentum buffer, "
+          "eval mode; phase 12 (a) "
+          f"{time.perf_counter() - t_phase:.1f} s host clock")
+    return sites, out, img_s
+
+
+def phase_peer_cpu(seed: int, b: int = 4):
+    """Phase 12 (b): the recipe's float32 train forward (teacher and KD on
+    `ori`) on the card (TF32 off) against the CPU, same weights and
+    inputs; phase 5's tolerance: relative 1e-3."""
+    from msml_torch.core.precision import FULL_PRECISION
+    from msml_torch.nn.msml import msml_from_config
+
+    cfg = peer_config()
+    gen = torch.Generator().manual_seed(seed + 12)
+    x = torch.randn((b, 3, H, W), generator=gen)
+    ori = torch.randn((b, 3, H, W), generator=gen)
+    label = torch.randint(0, cfg.num_classes, (b,), generator=gen)
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    try:
+        for dev in ("cuda", "cpu"):
+            model = msml_from_config(cfg, policy=FULL_PRECISION, device=dev,
+                                     seed=seed, head=True).train()
+            with torch.no_grad():
+                out[dev] = model(x.to(dev), label.to(dev), ori=ori.to(dev),
+                                 train=True)
+            del model
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+    errs = {name: rel_l2(g.cpu(), c) for name, g, c in zip(
+        ("final_cls", "final_seg", "kd"), out["cuda"], out["cpu"])}
+    if not all(e <= 1e-3 for e in errs.values()):
+        fail(f"recipe card f32 vs CPU f32: relative errors {errs}")
+    print(f"[12 peer] card f32 (TF32 off) vs CPU f32, the recipe's train "
+          f"forward at B={b} with ori: relative errors "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f" (<= 1e-3); kd {out['cpu'][2].item():.6f}")
+
+
+def peer_cli(seed: int, smi: str, sites: dict, npz: str, pairs_bin: str,
+             scratch: str) -> dict:
+    """Phase 12 (c, d): `cli.train` on the recipe from a procedural rec
+    with `peer_weights` = phase 10's frb.npz of phase 6's folder, a save
+    and a --resume; then the recipe's folder through `cli.test` (both
+    sweeps), `cli.serve` and `--quant int8`; -> launches by path."""
+    from msml_torch.cli import serve
+    from msml_torch.cli import test as cli_test
+    from msml_torch.cli.train import main, parse_args
+    from msml_torch.core.checkpoint import all_steps
+    from msml_torch.core.config import Config
+    from msml_torch.core.quantize import quant_sites, quantize_eval_model
+    from msml_torch.core.weight_folder import load_weight_folder
+    from msml_torch.eval.verification import l2_normalize_np
+    from msml_torch.tools.export_serving import EvalForward
+    from msml_torch.tools.load_weights import is_leaf, load_source
+    from msml_torch.tools.make_occluders import main as make_occluders
+    from msml_torch.tools.make_synthetic_rec import write_dataset
+
+    t_phase = time.perf_counter()
+    root, occl = (os.path.join(scratch, "peer_rec"),
+                  os.path.join(scratch, "peer_occ"))
+    write_dataset(root, ids=PEER_REC_IDS, per_id=PEER_REC_VIEWS, size=H,
+                  val_pairs=0, seed=seed, quality=80, log_every=0)
+    make_occluders(occl, num=8, seed=seed)
+    out = os.path.join(scratch, "peer_out")
+    cfg = Config.from_dict(dict(PEER_DEC, dataset="custom",
+                                num_classes=93431, rec=root,
+                                occluder_root=occl, nw=PEER_NW,
+                                peer_weights=npz, out_folder=out))
+    argv = ["--log-every", "1", "--seed", str(seed), "--device", "cuda"]
+    reset_launches()
+    t0 = time.perf_counter()
+    state = main(parse_args(argv + ["--steps", str(PEER_CLI_STEPS)]),
+                 Config.from_dict(dict(cfg)))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {"peer_cli": read_launches()}
+    folder = os.path.join(out, "arc18_msml_peer_dec_1")
+    with open(os.path.join(folder, "training.log")) as f:
+        log = f.read()
+    src = load_source(npz)
+    n_leaves = sum(1 for k in src if is_leaf(k))
+    loaded = f"loaded {n_leaves} peer tensors from {npz}" in log
+    want = peer_step_launches(sites, PEER_CLI_STEPS, False)
+    losses = [float(v) for v in re.findall(r" Loss (\S+) ", log)]
+    if (state.step != PEER_CLI_STEPS or launches["peer_cli"] != want
+            or not loaded or not losses
+            or not all(math.isfinite(v) for v in losses)):
+        fail(f"peer cli: step {state.step}, launches {launches['peer_cli']} "
+             f"(expected {want}), peer load logged {loaded}, losses {losses}")
+    teacher = state.model.frb.peer.state_dict()
+    differ = [k for k, v in src.items() if k[4:] in teacher
+              and not k.endswith(("num_batches_tracked", ".features.weight"))
+              and not torch.equal(teacher[k[4:]].cpu(), v.float())]
+    if differ:
+        fail(f"peer cli: teacher differs from frb.npz at {differ[:4]}")
+    speeds = [float(v) for v in re.findall(r"Speed (\S+) samples/sec", log)]
+    print(f"[12 peer] {smi}: cli.train on the recipe (dataset custom, a "
+          f"procedural rec of {PEER_REC_IDS} ids x {PEER_REC_VIEWS - 2} "
+          f"train views, host-float batches with ori from {PEER_NW} worker "
+          f"processes, 93431 classes, B={PEER_B}, bf16), peer_weights = "
+          f"phase 10's frb.npz ({n_leaves} tensors logged, the teacher "
+          f"bit-equal to it after {PEER_CLI_STEPS} steps): {seconds:.1f} s "
+          f"host clock (model build, pool start and a save included); Speed "
+          f"(samples/s) {speeds}; losses {[round(v, 4) for v in losses]}; "
+          f"launches {launches['peer_cli']}")
+    del state
+    state = main(parse_args(argv + ["--steps", str(PEER_RESUME_TO),
+                                    "--resume"]),
+                 Config.from_dict(dict(cfg)))
+    with open(os.path.join(folder, "training.log")) as f:
+        resumed = (f"backbone resume successfully! step={PEER_CLI_STEPS}"
+                   in f.read())
+    if not resumed or state.step != PEER_RESUME_TO:
+        fail(f"peer cli --resume: resumed {resumed}, step {state.step}")
+    print(f"[12 peer] --resume from step {PEER_CLI_STEPS} ran to step "
+          f"{state.step}; checkpoints {all_steps(folder)}")
+
+    # (d) the recipe's folder: both sweeps, the server, int8
+    reset_launches()
+    t0 = time.perf_counter()
+    rows = cli_test.main(cli_test.parse_args(
+        ["--device-sweep", "--weight_folder", folder, "--bin", pairs_bin,
+         "--device", "cuda"]))
+    torch.cuda.synchronize()
+    launches["peer_cli_sweep"] = read_launches()
+    batches = (1 + 9 * 10) * 2
+    want = dict(peer_eval_launches(sites, batches), augment_batch=batches)
+    if (len(rows) != 10 or launches["peer_cli_sweep"] != want
+            or not all(math.isfinite(r["avg_acc"]) for r in rows)):
+        fail(f"peer sweep: {len(rows)} rows, launches "
+             f"{launches['peer_cli_sweep']} (expected {want})")
+    print(f"[12 peer] cli.test --device-sweep on the recipe's folder, 40 "
+          f"pairs: {time.perf_counter() - t0:.1f} s; avg_acc "
+          + ", ".join(f"{r['lo']}%: {r['avg_acc']:.4f}" for r in rows)
+          + f"; launches {launches['peer_cli_sweep']}")
+    rows, host, spent = host_sweep(
+        ["--weight_folder", folder, "--bin", pairs_bin, "--device", "cuda",
+         "--repeats", "1"])
+    forwards = host["conv3x3_fwd"] // sites["conv"]
+    if (not forwards or host != peer_eval_launches(sites, forwards)
+            or not all(math.isfinite(r["avg_acc"]) for r in rows)):
+        fail(f"peer host sweep: launches {host}, rows {rows}")
+    print(f"[12 peer] cli.test (host sweep, BB, 1 repeat) on the recipe's "
+          f"folder: {spent['wall']:.1f} s ({spent['forward']:.1f} s "
+          f"forward), {forwards} forwards of "
+          f"{sites['prelu'] - sites['prelu_kd']} prelu_fwd and "
+          f"{sites['conv']} conv3x3_fwd each; avg_acc at 0% "
+          f"{rows[0]['avg_acc']:.4f}")
+
+    state.model.eval()
+    rs = np.random.RandomState(seed + 12)
+    x = rs.uniform(-1, 1, (16, H, W, 3)).astype(np.float32)
+    with torch.inference_mode():
+        fwd = EvalForward(state.model)
+        xt = torch.as_tensor(x, device="cuda")
+        live = l2_normalize_np((fwd(xt) + fwd(xt.flip(2))).float().cpu()
+                               .numpy())
+    del fwd, state
+    runner = serve.runner_from_weight_folder(folder, "cuda")
+    base, httpd, batcher, _ = start_server(runner)
+    try:
+        _, answer = post(base + "/embed_batch", npy_bytes(x))
+    finally:
+        stop_server(httpd, batcher)
+    served = np.asarray(answer["embeddings"], np.float64)
+    cos = float(np.min(np.sum(l2_normalize_np(served) * live, axis=1)))
+    if served.shape != (16, 512) or not cos >= SERVE_MIN_COS:
+        fail(f"peer serve: {served.shape}, min cosine to the live model "
+             f"{cos}")
+    qrunner = serve.runner_from_weight_folder(folder, "cuda", quant="int8")
+    reset_launches()
+    q = qrunner.infer(x)
+    torch.cuda.synchronize()
+    launches["peer_serve_quant"] = read_launches()
+    qcos = np.sum(l2_normalize_np(np.asarray(q, np.float64)) * live, axis=1)
+    n_int8 = len(quant_sites(quantize_eval_model(
+        load_weight_folder(folder, "cuda")[1], (H, W, 3))))
+    if (not np.isfinite(q).all() or not qcos.mean() >= QUANT_MEAN_COS
+            or not qcos.min() >= QUANT_FLOOR_COS
+            or launches["peer_serve_quant"]["qconv_int8"] != 2 * n_int8):
+        fail(f"peer int8: cosine mean {qcos.mean()} min {qcos.min()}, "
+             f"launches {launches['peer_serve_quant']} ({n_int8} sites)")
+    print(f"[12 peer] cli.serve on the recipe's folder: /embed_batch of 16, "
+          f"min cosine to the live model {cos:.6f} (>= {SERVE_MIN_COS}); "
+          f"--quant int8 ({n_int8} int8 sites: the towers' and conv_m's "
+          f"convs join the flagship's), feature cosine to bf16 mean "
+          f"{qcos.mean():.6f} min {qcos.min():.6f}; phase 12 (c, d) "
+          f"{time.perf_counter() - t_phase:.1f} s host clock")
+    return launches
+
+
+def phase_peer_eval(seed: int, smi: str, sites: dict, flagship_img_s: float):
+    """Phase 12 (e): the recipe's eval forward at B = 512 (the towers and
+    conv_m run; the teacher, the KD towers and the decoder do not); ->
+    its launches."""
+    from msml_torch.kernels.augment import augment_batch
+    from msml_torch.nn.msml import msml_from_config
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    x = augment_batch(torch.rand((B, H, W, 3), generator=gen, device="cuda"),
+                      torch.rand((B, 6), generator=gen, device="cuda"))
+    model = msml_from_config(peer_config(), device="cuda", seed=seed)
+    with torch.inference_mode():
+        reset_launches()
+        feat, seg = model(x)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        if (launches != peer_eval_launches(sites, 1)
+                or feat.shape != (B, 512) or not torch.isfinite(feat).all()
+                or not torch.isfinite(seg).all()):
+            fail(f"peer eval: launches {launches}, feature "
+                 f"{tuple(feat.shape)}")
+        ms = time_ms(lambda: model(x), windows=3, per_window=5)
+    print(f"[12 peer] {smi}: the recipe's bf16 eval forward, B={B}: "
+          f"{ms:.2f} ms = {B / ms * 1e3:.1f} img/s (the flagship's "
+          f"{flagship_img_s:.1f} img/s in phase 3); launches {launches}")
+    return launches
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -2713,8 +3143,14 @@ def main(argv=None):
     del model
     train_launches, train_img_s = phase_train(args.seed)
     phase_train_cpu_parity(args.seed)
+    peer_sites, peer_launches, peer_img_s = phase_peer_train(args.seed, smi)
+    phase_peer_cpu(args.seed)
+    peer_launches["peer_eval"] = phase_peer_eval(args.seed, smi, peer_sites,
+                                                 eval_img_s)
     (cli_launches, cli_speeds, cli_sweep_launches, serve_launches,
-     serve_errs, host_launches, quant) = phase_cli(args.seed, smi)
+     serve_errs, host_launches, quant, peer_cli_launches) = phase_cli(
+        args.seed, smi, peer_sites)
+    peer_launches.update(peer_cli_launches)
     quant_entries, quant_launches, quant_sweep_launches, quant_serve = quant
     rec_launches = phase_data(args.seed, smi, cli_speeds)
 
@@ -2741,6 +3177,8 @@ def main(argv=None):
         e["launches_serve"] = serve_launches[e["name"]]
         e["launches_cli_rec"] = rec_launches[e["name"]]
         e["launches_cli_host_sweep"] = host_launches[e["name"]]
+        for path, counts in peer_launches.items():
+            e["launches_" + path] = counts[e["name"]]
         e["max_abs_err"] = max(e["max_abs_err"],
                                serve_errs.get(e["name"], 0.0))
     img_s = quant_entries[0]["img_s"]
@@ -2750,7 +3188,8 @@ def main(argv=None):
           f"line); int8 eval forward {img_s['int8']:.1f} img/s (bf16 "
           f"{img_s['bf16']:.1f}, same call) at B={B}; "
           f"train step {train_img_s:.1f} img/s bf16 at B={B_TRAIN}; eval "
-          f"forward {eval_img_s:.1f} img/s at B={B}; "
+          f"forward {eval_img_s:.1f} img/s at B={B}; the peer-KD recipe's "
+          f"train step {peer_img_s:.1f} img/s bf16 at B={PEER_B}; "
           + "; ".join(f"{e['name']} {e['ms']:.4f} ms (bound "
                       f"{e['bound_ms']:.4f} ms)" for e in entries))
     print(json.dumps({"kernels": entries}))

@@ -20,22 +20,27 @@ MSML_OCCLUDER_DIR, else `msml_torch/data/occluder_assets`
 (`python -m msml_torch.tools.make_occluders` writes stand-ins).
 
 Runs on `cuda` unless `--device cpu` is given. Without `--config` the
-reference defaults (`default_config()`) are used with `dataset:
-synthetic`; their peer teacher (`use_ori: true`) is not ported, so such a
-run stops with NotImplementedError. `main(args, cfg)` also takes a Config
-in place of the YAML file (the card's machine has no PyYAML).
+reference defaults (`default_config()`, the peer-KD recipe of
+`configs/arc18_msml_peer_dec.yaml`: the frozen teacher, the FM towers and
+the recover decoder) are used with `dataset: synthetic`. A config without
+`device_light` feeds the step float images normalized on the host (and,
+with the teacher, the clean `ori` beside them). `main(args, cfg)` also
+takes a Config in place of the YAML file (the card's machine has no
+PyYAML).
 
-A config's `pretrained_backbone` (a `.npz` of `tools/export_frb.py`, a
-reference or exported `backbone.pth`, a vanilla iResNet `.pth` or a
-`ckpt/<step>.pt`) is overlaid on the fresh model before the first step
-(`tools/load_weights.py`); `--resume` then wins over it.
+A config's `pretrained_backbone` and `peer_weights` (each a `.npz` of
+`tools/export_frb.py`, a reference or exported `backbone.pth`, a vanilla
+iResNet `.pth` or a `ckpt/<step>.pt`) are overlaid on the fresh model,
+the first on the backbone and the second on the frozen teacher, before
+the first step (`tools/load_weights.py`); `--resume` then wins over
+both.
 
 On `--resume` the run continues from the latest checkpoint's step and, as
 the JAX CLI does (`msml_tpu/cli/train.py:276-306`), replays the
 interrupted epoch from its first batch. SIGTERM saves a checkpoint at the
 next step boundary and exits cleanly. Not ported yet, and refused:
-`--strategy`, `--scan-steps` above 1, `--multihost`, PartialFC and
-`peer_weights` (the frozen peer teacher).
+`--strategy`, `--scan-steps` above 1, `--multihost`, PartialFC, a
+`dropout` other than 0 and the LightCNN FRB.
 """
 
 from __future__ import annotations
@@ -89,8 +94,6 @@ def not_ported(args, cfg) -> list:
         ("--strategy " + args.strategy, bool(args.strategy)),
         ("--scan-steps %d" % args.scan_steps, args.scan_steps != 1),
         ("--multihost", args.multihost),
-        ("peer_weights (the frozen peer teacher)",
-         bool(cfg.get("peer_weights"))),
         ("PartialFC (sample_rate < 1 or use_partial_fc)",
          float(cfg.get("sample_rate", 1.0)) < 1.0
          or bool(cfg.get("use_partial_fc", False)))) if on]

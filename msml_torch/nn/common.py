@@ -121,10 +121,12 @@ def batch_norm(channels: int) -> BatchNorm2d:
 
 
 def conv_transpose(in_planes: int, out_planes: int, kernel_size: int,
-                   stride: int = 2, padding: int = 1) -> nn.ConvTranspose2d:
-    """The U-Net decoders' transposed conv (`backbones/osb/unet.py:141-156`)."""
+                   stride: int = 2, padding: int = 1,
+                   bias: bool = False) -> nn.ConvTranspose2d:
+    """The U-Net decoders' transposed conv (`backbones/osb/unet.py:141-156`)
+    and, with a bias, the recover decoder's (`nn/decoder.py`)."""
     return nn.ConvTranspose2d(in_planes, out_planes, kernel_size, stride,
-                              padding, bias=False)
+                              padding, bias=bias)
 
 
 def dap(x: torch.Tensor, num_classes: int = 2, k: int = 3) -> torch.Tensor:

@@ -6,11 +6,13 @@ Counterpart of `msml_tpu/nn/msml.py`. Parity target `backbones/msml.py:15-174`:
   * OSB output ordering: the OSB returns [seg0..seg3, seg5] small->big;
     reversed, final_seg = seg5 and segs = [seg3, seg2, seg1, seg0] big->small
     feed FM stages 1..4 (msml.py:150-158)
+  * the peer teacher (`use_ori`, `frb.peer`) runs on `ori` and feeds its
+    4 stage features to the FMs, whose KD terms sum to kd
+    (`msml_tpu/nn/msml.py:165-168`; 0.0 without a teacher feature)
   * eval forward returns (feature, final_seg) (msml.py:173-174); the
     training forward returns (final_cls, final_seg, kd) with
     final_cls = head(feature, label) + kd, the reference's constant logit
-    shift (msml.py:171; `msml_tpu/nn/msml.py:180-183`). The peer teacher is
-    not ported, so kd is 0.0 (`msml_tpu/nn/iresnet.py:185`).
+    shift (msml.py:171; `msml_tpu/nn/msml.py:180-183`).
 """
 
 from __future__ import annotations
@@ -44,7 +46,9 @@ class MSML(nn.Module):
                  fm_layers: Sequence[int] = (1, 1, 1, 1),
                  fm_params: Sequence = (3, 2, "tanh", "add"),
                  use_osb: bool = True, use_ori: bool = False,
-                 use_decoder: bool = False, width_mult: int = 1,
+                 use_conv: bool = False, mask_trans: str = "conv",
+                 kd_metric: bool = True, use_decoder: bool = False,
+                 decoder_loss_weight: float = 0.0, width_mult: int = 1,
                  num_classes: Optional[int] = None,
                  header_type: str = "AMArcFace",
                  header_params: Sequence[float] = (64.0, 0.5, 0.0, 0.0),
@@ -60,8 +64,6 @@ class MSML(nn.Module):
                 "combination too, fmoperator.py:285)")
         if "lightcnn" in frb_type:
             raise NotImplementedError("the LightCNN FRB is not ported yet")
-        if use_ori:
-            raise NotImplementedError("the peer teacher is not ported yet")
         input_size, _gray, _heights, f_channels, dim_feature = frb_shapes(
             frb_type)
         if not isinstance(width_mult, int):
@@ -79,14 +81,17 @@ class MSML(nn.Module):
             elif flag == 1:
                 fm_ops.append(FMCnn(channels, kernel_size=kernel_size,
                                     resblocks=num_res, activation=act,
-                                    arith_strategy=arith))
+                                    arith_strategy=arith, use_ori=use_ori,
+                                    use_conv=use_conv, mask_trans=mask_trans,
+                                    kd_metric=kd_metric))
             else:
                 raise ValueError("FM Operators type error")
 
         self.frb = iresnet.IResNet(layers=iresnet.IRESNET_LAYERS[frb_type],
                                    dim_feature=dim_feature, fm_ops=fm_ops,
                                    width_mult=width_mult,
-                                   use_decoder=use_decoder)
+                                   use_peer=use_ori, use_decoder=use_decoder,
+                                   decoder_loss_weight=decoder_loss_weight)
         self.osb: Optional[Unet] = None
         if use_osb:
             if "unet" not in osb_type:
@@ -103,8 +108,12 @@ class MSML(nn.Module):
                                                  header_type, s, m, a, k)
 
     def forward(self, x: torch.Tensor, label: Optional[torch.Tensor] = None,
-                train: bool = False):
-        """x: (B, 3, 112, 112) float32.
+                ori: Optional[torch.Tensor] = None, train: bool = False,
+                losses: Optional[dict] = None):
+        """x: (B, 3, 112, 112) float32; ori: the unoccluded images, same
+        shape, or None (the teacher and the decoder run only on it);
+        losses: a dict for the weighted recover loss ('rec', see
+        `IResNet.forward`).
 
         train=False -> (feature (B, 512) f32, final_seg (B, 2, 112, 112)
         f32 or None). train=True (the module in train mode, so BatchNorm
@@ -125,13 +134,22 @@ class MSML(nn.Module):
                 segs = (None, None, None, None)
                 final_seg = None
             # Part 2: FRB (`msml.py:163-167`)
-            feature = self.frb(x, segs)
+            feature, kd = self.frb(x, segs, ori, losses)
         feature = self.policy.cast_to_output(feature)
         if not train:
             return feature, final_seg
-        kd = 0.0
         final_cls = self.classification(feature, label) + kd
         return final_cls, final_seg, kd
+
+
+def _check_kd_metric(cfg) -> bool:
+    """`kd_metric` of the config (`msml_tpu/nn/msml.py:186-191`): off skips
+    the KD-only conv2 tower, legal only with `kd_loss_weight` 0."""
+    kd_metric = bool(cfg.get("kd_metric", True))
+    if not kd_metric and float(cfg.get("kd_loss_weight", 0.0)) > 0:
+        raise ValueError("kd_metric: false skips the KD computation and is "
+                         "only legal with kd_loss_weight == 0")
+    return kd_metric
 
 
 def msml_from_config(cfg, policy: Policy | None = None, device="cuda",
@@ -146,6 +164,7 @@ def msml_from_config(cfg, policy: Policy | None = None, device="cuda",
     if float(cfg.get("dropout", 0.0)) != 0.0:
         raise NotImplementedError("dropout is not ported yet")
     pp = cfg.get("peer_params") or {}
+    kd_metric = _check_kd_metric(cfg)
     with torch.device("meta"):  # no draws from the global RNG
         model = MSML(
             frb_type=cfg.frb_type,
@@ -154,7 +173,11 @@ def msml_from_config(cfg, policy: Policy | None = None, device="cuda",
             fm_params=tuple(cfg.fm_params),
             use_osb=bool(cfg.use_osb),
             use_ori=bool(pp.get("use_ori", False)),
+            use_conv=bool(pp.get("use_conv", False)),
+            mask_trans=pp.get("mask_trans", "conv"),
+            kd_metric=kd_metric,
             use_decoder=bool(pp.get("use_decoder", False)),
+            decoder_loss_weight=float(cfg.get("decoder_loss_weight", 0.0)),
             width_mult=cfg.get("width_mult", 1),
             num_classes=cfg.num_classes if head else None,
             header_type=cfg.get("header_type", "AMArcFace"),

@@ -2,7 +2,11 @@
 
 The port's own copy of the exporter `msml_tpu/tools/export_torch.py` and of
 its inverse `msml_tpu/tools/import_torch.py::import_msml_checkpoint`, for
-the modules the port has: the iResNet trunk, the FMCnn operators, the
+the modules the port has: the iResNet trunk, the FMCnn operators with
+their peer-guided parts (`conv_m` as `.conv_m.0` / `.conv_m.1`, the towers
+`conv1` / `conv2` as `.0` to `.5`), the frozen iResNet teacher (`peer` ->
+`frb.peer.*`), the recover decoder (`frb/decoder` -> `frb.decoder.*`, under
+the flax names: the JAX exporter refuses a decoder and so names none), the
 U-Net and the classification head. The trees are nested dicts of numpy
 arrays (e.g. from `jax.device_get`); no JAX or flax is needed here. The
 state dict carries the reference's torch names, so
@@ -122,9 +126,6 @@ def _iresnet(e: _Layout, dst: str, path: Path):
 def _fm(e: _Layout, dst: str, path: Path):
     if not e.has(path + ("same_conv",), dst + ".same_conv."):
         return  # FMNone: no parameters either side
-    if (e.has(path + ("conv_m",), dst + ".conv_m.")
-            or e.has(path + ("conv1",), dst + ".conv1.")):
-        raise NotImplementedError("the peer-guided FM path is not ported yet")
     e.conv(dst + ".same_conv", path + ("same_conv",))
     i = 0
     while e.has(path + (f"res{i}",), f"{dst}.res_block.{i}."):
@@ -134,6 +135,28 @@ def _fm(e: _Layout, dst: str, path: Path):
             e.bn(f"{d}.bn{ci}", p + (f"bn{ci}",))
             e.prelu(f"{d}.prelu{ci}", p + (f"prelu{ci}",))
         i += 1
+    if e.has(path + ("conv_m",), dst + ".conv_m."):
+        e.conv(dst + ".conv_m.0", path + ("conv_m",), bias=True)
+        e.bn(dst + ".conv_m.1", path + ("conv_m_bn",))
+    for tower in ("conv1", "conv2"):
+        if e.has(path + (tower,), f"{dst}.{tower}."):
+            for j, base in enumerate((0, 3)):
+                e.conv(f"{dst}.{tower}.{base}", path + (tower, f"conv{j}"),
+                       bias=True)
+                e.bn(f"{dst}.{tower}.{base + 1}", path + (tower, f"bn{j}"))
+                e.prelu(f"{dst}.{tower}.{base + 2}",
+                        path + (tower, f"prelu{j}"))
+
+
+def _decoder(e: _Layout, dst: str, path: Path):
+    for s in range(3):
+        e.conv(f"{dst}.conv_in{s}", path + (f"conv_in{s}",), bias=True)
+        for r in "ab":
+            for ci in (0, 1):
+                e.conv(f"{dst}.res{s}{r}.conv{ci}",
+                       path + (f"res{s}{r}", f"conv{ci}"), bias=True)
+        e.conv(f"{dst}.deconv{s}", path + (f"deconv{s}",), bias=True)
+    e.conv(f"{dst}.deconv_out", path + ("deconv_out",), bias=True)
 
 
 def _unet(e: _Layout, dst: str, path: Path):
@@ -149,13 +172,15 @@ def _unet(e: _Layout, dst: str, path: Path):
 def _walk(e: _Layout) -> _Layout:
     if not e.has(("frb", "conv1", "kernel"), "frb.conv1.weight"):
         raise NotImplementedError("only the iResNet FRB is ported so far")
-    if e.has(("frb", "decoder"), "frb.decoder.") or e.has(("peer",),
-                                                           "frb.peer."):
-        raise NotImplementedError(
-            "the recover decoder and the peer teacher are not ported yet")
     _iresnet(e, "frb", ("frb",))
+    if e.has(("frb", "decoder"), "frb.decoder."):
+        _decoder(e, "frb.decoder", ("frb", "decoder"))
     for i in range(4):
         _fm(e, f"frb.fm_ops.{i}", (f"fm_op{i}",))
+    if e.has(("peer",), "frb.peer."):
+        if not e.has(("peer", "conv1", "kernel"), "frb.peer.conv1.weight"):
+            raise NotImplementedError("only the iResNet peer is ported so far")
+        _iresnet(e, "frb.peer", ("peer",))
     if e.has(("osb",), "osb."):
         _unet(e, "osb", ("osb",))
     for name in ("weight", "bias"):

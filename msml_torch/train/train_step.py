@@ -3,15 +3,25 @@
 Counterpart of `shard_body` in `msml_tpu/train/train_step.py:229-384` on one
 device, so without collectives (JAX's pmeans over one device change
 nothing). One step:
-  1. the `device_light` input stage on the uint8 batch (:245-251): /255,
-     Gaussian relight with draws from the state's generator, normalize,
-     NHWC -> NCHW, in the CUDA `augment_batch` kernel;
+  1. the input (:244-252). With `device_light`, the input stage on the
+     uint8 batch: /255, Gaussian relight with draws from the state's
+     generator, normalize, NHWC -> NCHW, in the CUDA `augment_batch`
+     kernel; with `use_ori` the clean images `ori` go through the same
+     kernel without relight (the host never relights them). Without
+     `device_light` (the host-float path), `img` and `ori` arrive as float
+     NHWC, normalized on the host, and are only moved to NCHW;
   2. the forward under the config's precision policy (bf16 autocast for
      `fp16: true`), BatchNorm in train mode updating its running stats;
+     with `use_ori` the frozen teacher runs on `ori` and the FMs give
+     their KD terms, and a decoder with `decoder_loss_weight > 0` its
+     weighted recover loss;
   3. the f32 log-softmax CE mean (:288-291) and the consensus loss of
      `final_seg` against `msk` (:301-303); total = cls + lambda1 seg
-     + kd_loss_weight kd (:310-311);
-  4. backward, the global-norm clip and the SGD step (:353-361).
+     + kd_loss_weight kd + rec (:273-311);
+  4. backward, the global-norm clip and the SGD step (:353-361). A
+     parameter that got no gradient (the decoder while its loss is off)
+     gets a zero one, so that weight decay and momentum reach it as JAX's
+     `sgd_update` does; the teacher is not in the optimizer.
 Metrics are those of :381-383, as 0-d tensors on the device.
 `make_eval_step` is the feature extraction of the verification callback.
 """
@@ -57,14 +67,13 @@ def init_train_state(model: torch.nn.Module, cfg, device="cuda",
 def make_train_step(cfg) -> Callable[..., Dict[str, torch.Tensor]]:
     """-> step(state, batch, lr_factor, light_draws=None) -> metrics.
 
-    batch: 'img' (B, H, W, C) uint8, 'label' (B,), 'msk' (B, H, W) when
-    use_osb; numpy arrays or tensors. lr_factor: `lr_step_factor(cfg,
-    epoch)`. light_draws: (B, 3) relight uniforms to use instead of the
-    generator's (the tests inject JAX's)."""
-    if not cfg.get("device_light"):
-        raise NotImplementedError("only device_light: true is ported")
-    if cfg.peer_params.get("use_ori"):
-        raise NotImplementedError("the peer teacher is not ported yet")
+    batch: 'img' (B, H, W, C) uint8 with `device_light`, else float32
+    normalized on the host; 'label' (B,); 'msk' (B, H, W) when use_osb;
+    'ori' like 'img' when `use_ori`; numpy arrays or tensors. lr_factor:
+    `lr_step_factor(cfg, epoch)`. light_draws: (B, 3) relight uniforms to
+    use instead of the generator's (the tests inject JAX's)."""
+    device_light = bool(cfg.get("device_light"))
+    use_ori = bool(cfg.peer_params.get("use_ori"))
     use_osb = bool(cfg.use_osb)
     lambda1 = float(cfg.lambda1)
     kd_weight = float(cfg.get("kd_loss_weight", 0.0))
@@ -78,12 +87,23 @@ def make_train_step(cfg) -> Callable[..., Dict[str, torch.Tensor]]:
         dev = state.generator.device
         img = torch.as_tensor(batch["img"], device=dev)
         label = torch.as_tensor(batch["label"], device=dev).long()
-        if gauss_light and light_draws is None:
-            light_draws = torch.rand((img.shape[0], 3),
-                                     generator=state.generator, device=dev)
-        x = device_input_stage(img, light_draws, gauss_light, use_norm)
+        ori = torch.as_tensor(batch["ori"], device=dev) if use_ori else None
+        if device_light:
+            if gauss_light and light_draws is None:
+                light_draws = torch.rand((img.shape[0], 3),
+                                         generator=state.generator,
+                                         device=dev)
+            x = device_input_stage(img, light_draws, gauss_light, use_norm)
+            if ori is not None:
+                ori = device_input_stage(ori, None, False, use_norm)
+        else:
+            x = nchw_float(img)
+            if ori is not None:
+                ori = nchw_float(ori)
 
-        final_cls, final_seg, kd = model(x, label, train=True)
+        losses: Dict[str, torch.Tensor] = {}
+        final_cls, final_seg, kd = model(x, label, ori=ori, train=True,
+                                         losses=losses)
         cls_loss = cross_entropy(final_cls, label)
         if use_osb:
             msk = torch.as_tensor(batch["msk"], device=dev)
@@ -91,21 +111,30 @@ def make_train_step(cfg) -> Callable[..., Dict[str, torch.Tensor]]:
         else:
             seg_loss = torch.zeros((), device=dev)
         kd = torch.as_tensor(kd, dtype=torch.float32, device=dev)
-        total = cls_loss + lambda1 * seg_loss + kd_weight * kd
+        rec_loss = sum(losses.values(), torch.zeros((), device=dev))
+        total = cls_loss + lambda1 * seg_loss + kd_weight * kd + rec_loss
 
         for group in opt.param_groups:  # the LambdaLR factor
             group["lr"] = group["base_lr"] * float(lr_factor)
         opt.zero_grad(set_to_none=True)
         total.backward()
-        grad_norm = optim.clip_by_global_norm(
-            [p for g in opt.param_groups for p in g["params"]], clip_norm)
+        params = [p for g in opt.param_groups for p in g["params"]]
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grad_norm = optim.clip_by_global_norm(params, clip_norm)
         opt.step()
         state.step += 1
         return {"total_loss": total.detach(), "cls_loss": cls_loss.detach(),
-                "seg_loss": seg_loss.detach(), "kd": kd,
+                "seg_loss": seg_loss.detach(), "kd": kd.detach(),
                 "nll": cls_loss.detach(), "grad_norm": grad_norm}
 
     return step
+
+
+def nchw_float(img: torch.Tensor) -> torch.Tensor:
+    """A host-float batch (B, H, W, C) -> contiguous float32 (B, C, H, W)."""
+    return img.permute(0, 3, 1, 2).to(torch.float32).contiguous()
 
 
 def make_eval_step(model: torch.nn.Module) -> Callable[[np.ndarray],

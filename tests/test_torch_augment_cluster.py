@@ -294,7 +294,14 @@ def test_kernel_replayed_in_numpy(shape, dtype):
         x = _offset(img, 1) if i % 2 else img  # aligned and one element off
         kw = dict(lo=lo, hi=hi, fill=fill, relight=relight,
                   use_norm=i % 3 != 0)
-        want = augment_batch_reference(x, draws, noise, **kw).numpy()
+        # one intra-op thread: the first parallel CPU torch.exp of a
+        # process has come back up to 1.5e-4 off under load
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            want = augment_batch_reference(x, draws, noise, **kw).numpy()
+        finally:
+            torch.set_num_threads(threads)
         np.testing.assert_array_equal(replay(x, draws, noise, **kw), want)
 
 

@@ -136,20 +136,44 @@ def test_verification_every_n_steps(tmp_path):
 
 
 def test_peer_teacher_is_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="peer"):
-        run(tmp_path, "--steps", "1",
+    """The peer teacher trains since the peer-KD recipe was ported; what
+    stays refused of it is the LightCNN FRB's teacher (PeerLightCNN)."""
+    with pytest.raises(NotImplementedError, match="LightCNN"):
+        run(tmp_path, "--steps", "1", frb_type="lightcnn",
             peer_params={"use_ori": True, "use_conv": True,
                          "mask_trans": "conv", "use_decoder": True})
 
 
 def test_default_config_is_refused(tmp_path, monkeypatch):
-    """No --config: the reference defaults, whose peer teacher
-    (use_ori: true) is not ported."""
+    """No --config: the reference defaults, the peer-KD recipe
+    (use_ori, use_conv, use_decoder at B = 256), were refused until the
+    teacher was ported. Now the CLI writes their config.yaml and builds
+    the model with its teacher, towers and decoder and the step without
+    refusing; the step itself is stopped before it runs (B = 256 at full
+    width does not belong in a CPU test: tests/test_torch_peer_cli.py
+    trains the recipe)."""
+    from msml_torch.train import train_step
+
+    class Built(Exception):
+        pass
+
+    real = train_step.make_train_step
+
+    def stop(cfg):
+        real(cfg)
+        raise Built(cfg)
+
+    monkeypatch.setattr(train_step, "make_train_step", stop)
     monkeypatch.chdir(tmp_path)
     args = cli.parse_args(["--device", "cpu", "--config",
                            str(tmp_path / "missing.yaml"), "--steps", "1"])
-    with pytest.raises(NotImplementedError, match="peer"):
+    with pytest.raises(Built) as built:
         cli.main(args)
+    cfg = built.value.args[0]
+    assert dict(cfg.peer_params) == {"use_ori": True, "use_conv": True,
+                                     "mask_trans": "conv",
+                                     "use_decoder": True}
+    assert not cfg.get("device_light") and cfg.batch_size == 256
     assert os.path.exists(tmp_path / "out" / "arc18_msml_1" / "config.yaml")
 
 

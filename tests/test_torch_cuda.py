@@ -508,3 +508,33 @@ def test_quantized_model_rows_are_batch_invariant(cuda):
         a = q(torch.cat([x[:3], torch.zeros_like(x[3:])]))
         b = q(torch.cat([x[:3], 100.0 * x[3:]]))
     assert torch.equal(a[:3], b[:3])
+
+
+@pytest.mark.parametrize("light", [False, True], ids=["host_float", "light"])
+def test_peer_recipe_step_launches_and_frozen_teacher(cuda, light):
+    """configs/arc18_msml_peer_dec.yaml's train step on the card at B = 8
+    with 64 classes: each kernel launched as the module sites say (the
+    teacher's PReLU and conv3x3 forward only; with device_light the augment
+    kernel on img and on ori), the teacher bit-unchanged and outside the
+    optimizer."""
+    import chip_smoke
+    from msml_torch.data.synthetic import synthetic_batch
+    from msml_torch.nn.msml import msml_from_config
+    from msml_torch.train.train_step import init_train_state, make_train_step
+
+    cfg = chip_smoke.peer_config(batch_size=8, device_light=light)
+    cfg.num_classes = 64
+    model = msml_from_config(cfg, device=cuda, head=True)
+    sites = chip_smoke.peer_sites(model)
+    state = init_train_state(model, cfg, cuda)
+    before = chip_smoke.teacher_snapshot(model)
+    host = synthetic_batch(8, num_classes=64, uint8=light)
+    step = make_train_step(cfg)
+    chip_smoke.reset_launches()
+    metrics = [step(state, host, 1.0) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert chip_smoke.read_launches() == chip_smoke.peer_step_launches(
+        sites, 2, light)
+    assert all(torch.isfinite(v).all() for m in metrics for v in m.values())
+    assert metrics[-1]["kd"].item() > 0
+    chip_smoke.check_teacher(state, before, "peer step")

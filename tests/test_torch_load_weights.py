@@ -8,7 +8,9 @@ onto a train state that start from the same weights. After
 `state_dict_from_jax` the two results are equal exactly, the groups that
 were not overlaid keep their weights, both log the same count, and both
 raise and warn alike. Then `cli.train` overlays before its first step,
-refuses `peer_weights`, and a `--resume` wins over the pretrained weights.
+raises for a missing `peer_weights` file (tests/test_torch_peer_weights.py
+holds `peer_weights` itself against JAX), and a `--resume` wins over the
+pretrained weights.
 arc18_msml's structure with one block per iResNet stage, float32, a
 16-class head, on the CPU."""
 
@@ -262,13 +264,19 @@ def test_features_scale_warning_in_both(template, donor, tmp_path):
 
 
 def test_peer_weights_is_refused(template, tmp_path):
+    """`peer_weights` was refused until the teacher was ported; now a
+    missing file is refused, by the CLI and by `load_pretrained`, with
+    JAX's FileNotFoundError."""
+    missing = str(tmp_path / "peer.pth")
     cfg = Config.from_dict(dict(SMALL, out_folder=str(tmp_path),
-                                peer_weights="peer.pth"))
-    with pytest.raises(NotImplementedError, match="peer_weights"):
+                                peer_weights=missing))
+    with pytest.raises(FileNotFoundError, match="peer.pth"):
         cli_train.main(cli_train.parse_args(["--device", "cpu",
                                              "--steps", "1"]), cfg)
-    _, tcfg = configs(peer_weights="peer.pth")
-    with pytest.raises(NotImplementedError, match="peer teacher"):
+    jcfg, tcfg = configs(peer_weights=missing)
+    with pytest.raises(FileNotFoundError, match="peer.pth"):
+        jax_load(jax_state(template), jcfg)
+    with pytest.raises(FileNotFoundError, match="peer.pth"):
         load_pretrained(port_state(template), tcfg)
 
 

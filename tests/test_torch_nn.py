@@ -170,8 +170,9 @@ def test_fmcnn(act, arith):
     m = fm.FMCnn(16, kernel_size=3, resblocks=2, activation=act,
                  arith_strategy=arith).eval()
     m.load_state_dict(emitted(lambda e: convert._fm(e, "m", ()), v))
-    np.testing.assert_allclose(to_nhwc(m(nchw(yf), nchw(yo))), want,
-                               atol=ATOL, rtol=0)
+    got, kd = m(nchw(yf), nchw(yo))
+    assert kd is None
+    np.testing.assert_allclose(to_nhwc(got), want, atol=ATOL, rtol=0)
 
 
 def arc18_configs():

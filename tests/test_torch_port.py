@@ -57,6 +57,14 @@ def test_port_imports_no_jax(path):
             path, name)
 
 
+def test_peer_recipe_modules_are_checked():
+    """The peer-KD recipe's modules are among the files whose imports
+    `test_port_imports_no_jax` holds."""
+    for rel in (("nn", "decoder.py"), ("nn", "fm.py"), ("nn", "iresnet.py"),
+                ("tools", "load_weights.py"), ("train", "train_step.py")):
+        assert os.path.join(REPO, "msml_torch", *rel) in PORT_FILES, rel
+
+
 @pytest.fixture
 def arc18_cfg():
     from msml_torch.core.config import config_init, load_yaml
