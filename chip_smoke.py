@@ -55,10 +55,10 @@ Phases:
      B = 128) for 20 steps with a checkpoint every 10 into a temporary
      folder: every logged loss finite, Speed lines logged, the checkpoints
      written, each kernel launched as often as the steps and sites say;
-     then the same for 30 steps, three runs with blocking saves
-     (`--sync-ckpt`) and three with asynchronous ones, alternating: their
-     Speed by window, each save's seconds on the loop, and the steps'
-     seconds; then a `--resume` run that continues from step 20 to 24; then
+     then the same for 30 steps, one run with blocking saves
+     (`--sync-ckpt`) and one with asynchronous ones: their Speed by
+     window, each save's seconds on the loop, and the steps' seconds;
+     then a `--resume` run that continues from step 20 to 24; then
      the sweep on the folder it wrote: `load_weight_folder` gives the
      trained model's eval features, and `msml_torch.cli.test
      --device-sweep` runs on it over a `.bin` of 40 synthetic PPM pairs;
@@ -178,6 +178,28 @@ Phases:
      the host sweep (BB, 1 repeat), launches per forward as the eval sites
      say, an /embed_batch of 16 through `cli.serve` against the live
      model, and `--quant int8` with its feature cosine to bf16.
+  13. the LightCNN-29v2 gray recipe (configs/lightcnn_msml.yaml: 128 x
+     128 x 1 without input normalization, the 1-channel U-Net OSB, four
+     FMCnn [3, 2, tanh, add], Softmax; last): (a) the kernels at its
+     shapes against their plain versions with phase 2's tolerances and
+     timed beside their bounds (and cuDNN / `F.prelu`): `augment_batch`
+     on gray uint8 at B = 256 (the train stage) and f32 at B = 512 (the
+     sweep) with `use_norm` off, conv3x3 forward, dX and dW at its routed
+     sites' 64^2, 32^2 and 8^2 at B = 256, the PReLU pair at its 15
+     distinct shapes; (b) its bf16 eval forward at B = 512 (feature
+     (B, 256), final_seg (B, 2, 128, 128)) in img/s, launches counted,
+     against float32 on the card (TF32 off) and on the CPU; (c) its train
+     step at B = 256 with webface's 10,572 classes on gray uint8
+     `device_light` batches: 30 steps on one batch lower total_loss, each
+     kernel launched as its 33 PReLU and 5 conv3x3 sites say, img/s, a
+     profile, one float32 step against the CPU; (d) `cli.train` on the
+     yaml (host-float batches, 20 steps, checkpoints), then on its folder
+     `cli.test --device-sweep` and the host sweep over 40 gray pairs,
+     `cli.serve` (/embed and /embed_batch against a direct forward),
+     `tools.export_serving`, `--quant int8` (93 sites: every distinct
+     geometry bit-equal to the plain kernels, the B = 512 forward's cosine
+     to bf16) and a `use_ori` run with `peer_weights` = the folder's
+     backbone.pth (the PeerLightCNN teacher bit-equal to it).
 
 Exits non-zero, without the final line, when CUDA is missing or any check
 fails. Needs no network or PyYAML; phase 9 needs Pillow and OpenCV.
@@ -568,41 +590,42 @@ def phase_kernel_uint8(seed: int) -> dict:
             "no_relight_ms": norm_ms}
 
 
-def prelu_sites(seed: int):
-    """(C, H, W) of every PReLU call in one arc18_msml forward."""
+def prelu_shapes(model, x: torch.Tensor) -> list:
+    """(C, H, W) of every PReLU call in one eval forward of `model` on x."""
     from msml_torch.nn.common import PReLU
 
-    model = build_model(seed)
     shapes = []
-    for m in model.modules():
-        if isinstance(m, PReLU):
-            m.register_forward_pre_hook(
-                lambda _, args: shapes.append(tuple(args[0].shape[1:])))
-    with torch.inference_mode():
-        model(torch.zeros((2, 3, H, W), device="cuda"))
+    hooks = [m.register_forward_pre_hook(
+        lambda _, args: shapes.append(tuple(args[0].shape[1:])))
+        for m in model.modules() if isinstance(m, PReLU)]
+    try:
+        with torch.inference_mode():
+            model(x)
+    finally:
+        for h in hooks:
+            h.remove()
     return shapes
 
 
-def phase_kernel_prelu(seed: int):
-    """prelu_fwd / prelu_bwd against the plain versions at every distinct
-    site shape, then timed at the largest site."""
-    import torch.nn.functional as F
+def prelu_sites(seed: int):
+    """(C, H, W) of every PReLU call in one arc18_msml forward."""
+    return prelu_shapes(build_model(seed),
+                        torch.zeros((2, 3, H, W), device="cuda"))
 
-    from msml_torch.kernels.prelu import (_geometry, prelu, prelu_bwd,
-                                          prelu_bwd_reference, prelu_fwd,
-                                          prelu_reference)
 
-    sites = prelu_sites(seed)
-    if len(sites) != PRELU_SITES:
-        fail(f"{len(sites)} PReLU sites in arc18_msml, expected "
-             f"{PRELU_SITES}")
-    shapes = sorted(set(sites), key=lambda s: -s[0] * s[1] * s[2])
-    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+def check_prelu_shapes(gen, shapes, batch: int):
+    """prelu_fwd / prelu_bwd against the plain versions at each (C, H, W)
+    of `shapes` at `batch`, bf16 and f32: y and dx exactly equal, dalpha
+    within DALPHA_TOL; -> (max abs errors of fwd and bwd, the worst dalpha
+    relative error by dtype)."""
+    from msml_torch.kernels.prelu import (prelu_bwd, prelu_bwd_reference,
+                                          prelu_fwd, prelu_reference)
+
     errs = {"fwd": 0.0, "bwd": 0.0}
     worst_da = {}
     for dtype in (torch.bfloat16, torch.float32):
         for c, h, w in shapes:
-            x = torch.randn((B_TRAIN, c, h, w), generator=gen,
+            x = torch.randn((batch, c, h, w), generator=gen,
                             device="cuda")
             x[torch.rand(x.shape, generator=gen, device="cuda") < 0.05] = 0
             x = x.to(dtype)
@@ -623,16 +646,23 @@ def phase_kernel_prelu(seed: int):
             errs["fwd"] = max(errs["fwd"],
                               (y.float() - y_ref.float()).abs().max().item())
             errs["bwd"] = max(errs["bwd"], (da - da_ref).abs().max().item())
-    print(f"[2c prelu] {len(sites)} sites, {len(shapes)} distinct (C, H, W) "
-          f"at B={B_TRAIN}, bf16 and f32: y and dx exactly equal to the "
-          "plain version; dalpha relative L2 error "
-          + ", ".join(f"{str(k)[6:]} {v:.2e}" for k, v in worst_da.items()))
+    return errs, worst_da
+
+
+def time_prelu(gen, shape, tag: str) -> dict:
+    """prelu_fwd, prelu_bwd and both through autograd at `shape` (N, C, H,
+    W), bf16 and f32: kernel, plain and `F.prelu` times beside the bound;
+    -> {dtype: {part: (ms, plain_ms, library_ms, bound_ms)}}."""
+    import torch.nn.functional as F
+
+    from msml_torch.kernels.prelu import (_geometry, prelu, prelu_bwd,
+                                          prelu_bwd_reference, prelu_fwd,
+                                          prelu_reference)
 
     timed = {}
-    c, h, w = shapes[0]
+    c = shape[1]
     for dtype in (torch.bfloat16, torch.float32):
-        x = torch.randn((B_TRAIN, c, h, w), generator=gen,
-                        device="cuda").to(dtype)
+        x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
         g = torch.randn(x.shape, generator=gen, device="cuda").to(dtype)
         a = torch.rand((c,), generator=gen, device="cuda") * 0.5
         xr, ar = x.clone().requires_grad_(), a.clone().requires_grad_()
@@ -662,9 +692,29 @@ def phase_kernel_prelu(seed: int):
             bound = ("" if bound_ms is None else
                      f", bound {bound_ms:.4f} ms = {bound_ms / ms:.1%} of "
                      "the memory rate")
-            print(f"[2c prelu] {str(dtype)[6:]} {part} at "
-                  f"{(B_TRAIN, c, h, w)}: kernel {ms:.4f} ms, plain "
+            print(f"{tag} {str(dtype)[6:]} {part} at "
+                  f"{tuple(shape)}: kernel {ms:.4f} ms, plain "
                   f"{plain_ms:.4f} ms, F.prelu {lib_ms:.4f} ms{bound}")
+    return timed
+
+
+def phase_kernel_prelu(seed: int):
+    """prelu_fwd / prelu_bwd against the plain versions at every distinct
+    site shape, then timed at the largest site."""
+    sites = prelu_sites(seed)
+    if len(sites) != PRELU_SITES:
+        fail(f"{len(sites)} PReLU sites in arc18_msml, expected "
+             f"{PRELU_SITES}")
+    shapes = sorted(set(sites), key=lambda s: -s[0] * s[1] * s[2])
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    errs, worst_da = check_prelu_shapes(gen, shapes, B_TRAIN)
+    print(f"[2c prelu] {len(sites)} sites, {len(shapes)} distinct (C, H, W) "
+          f"at B={B_TRAIN}, bf16 and f32: y and dx exactly equal to the "
+          "plain version; dalpha relative L2 error "
+          + ", ".join(f"{str(k)[6:]} {v:.2e}" for k, v in worst_da.items()))
+
+    c, h, w = shapes[0]
+    timed = time_prelu(gen, (B_TRAIN, c, h, w), "[2c prelu]")
     entries = []
     for name, part, err in (("prelu_fwd", "fwd", errs["fwd"]),
                             ("prelu_bwd", "bwd", errs["bwd"])):
@@ -693,24 +743,21 @@ def offset_bf16(gen, shape, offset: int) -> torch.Tensor:
             .bfloat16()[offset:].view(shape))
 
 
-def phase_kernel_conv(seed: int):
-    """conv3x3_fwd (forward and dX) and conv3x3_dw against the plain
-    versions at the three site shapes and at odd and wide shapes, then the
-    bf16 times at every site beside the bound and cuDNN."""
-    from torch.nn.grad import conv2d_input, conv2d_weight
-    import torch.nn.functional as F
-
+def check_conv_shapes(gen, shapes, batch: int, tag: str) -> dict:
+    """conv3x3_fwd (forward, and dX on flipped weights) and conv3x3_dw
+    against the plain versions in f32 at each (C, H, W) of `shapes` at
+    `batch`, bf16 and f32, within CONV_TOL, two runs bit-equal; -> the max
+    abs errors of the forward and of dW."""
     from msml_torch.kernels.conv3x3 import (conv3x3_dw, conv3x3_dw_reference,
                                             conv3x3_fwd, conv3x3_reference,
                                             flip_weights)
 
-    gen = torch.Generator(device="cuda").manual_seed(seed + 5)
     errs = {"fwd": 0.0, "dw": 0.0}
     worst = {}
     for dtype in (torch.bfloat16, torch.float32):
         tol_y, tol_dw = CONV_TOL[dtype]
-        for c, h, w in CONV_SHAPES:
-            x = torch.randn((B_TRAIN, c, h, w), generator=gen,
+        for c, h, w in shapes:
+            x = torch.randn((batch, c, h, w), generator=gen,
                             device="cuda").to(dtype)
             dy = torch.randn(x.shape, generator=gen, device="cuda").to(dtype)
             wt = (torch.randn((c, c, 3, 3), generator=gen, device="cuda")
@@ -739,10 +786,77 @@ def phase_kernel_conv(seed: int):
                 slot = "dw" if part == "dw" else "fwd"
                 errs[slot] = max(errs[slot], err)
             del x, dy, outs, again
-    print(f"[2d conv3x3] {len(CONV_SHAPES)} site shapes at B={B_TRAIN}, bf16 "
+    print(f"{tag} {len(shapes)} site shapes at B={batch}, bf16 "
           "and f32, against the plain versions in f32: relative L2 error "
           + ", ".join(f"{d} {p} {v:.2e}" for (d, p), v in worst.items())
           + "; two forward and two dW runs bit-equal")
+    return errs
+
+
+def time_conv_sites(gen, shapes, batch: int, tag: str, plain_at=None):
+    """The bf16 forward, dX and dW at each (C, H, W) of `shapes` at
+    `batch`: the kernels, cuDNN (`F.conv2d`, `conv2d_input`,
+    `conv2d_weight`) and, at `plain_at`, the plain versions, beside the
+    bound; -> {"HxW": ({part: (ms, plain_ms, library_ms)}, bound_ms,
+    bound_by)}."""
+    from torch.nn.grad import conv2d_input, conv2d_weight
+    import torch.nn.functional as F
+
+    from msml_torch.kernels.conv3x3 import (conv3x3_dw, conv3x3_dw_reference,
+                                            conv3x3_fwd, conv3x3_reference,
+                                            flip_weights)
+
+    dtype = torch.bfloat16
+    sites = {}
+    for c, h, w in shapes:
+        x = torch.randn((batch, c, h, w), generator=gen,
+                        device="cuda").to(dtype)
+        dy = torch.randn(x.shape, generator=gen, device="cuda").to(dtype)
+        wt = (torch.randn((c, c, 3, 3), generator=gen, device="cuda")
+              / 24).to(dtype)
+        wf = flip_weights(wt).contiguous()
+        flops = 2 * x.numel() * 9 * c  # per pass: 118.4 GFLOP at 112^2
+        nbytes = 2 * x.numel() * x.element_size()  # x and y, or x and dy
+        bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
+        bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS
+                    else "operations")
+        plain = (lambda fn: time_ms(fn, windows=3, per_window=3)) \
+            if (c, h, w) == plain_at else (lambda fn: None)
+        t = {
+            "fwd": (time_ms(lambda: conv3x3_fwd(x, wt), per_window=10),
+                    plain(lambda: conv3x3_reference(x, wt)),
+                    time_ms(lambda: F.conv2d(x, wt, padding=1),
+                            per_window=10)),
+            "dx": (time_ms(lambda: conv3x3_fwd(dy, wf), per_window=10),
+                   plain(lambda: conv3x3_reference(dy, wf)),
+                   time_ms(lambda: conv2d_input(x.shape, wt, dy, padding=1),
+                           per_window=10)),
+            "dw": (time_ms(lambda: conv3x3_dw(x, dy), per_window=10),
+                   plain(lambda: conv3x3_dw_reference(x, dy)),
+                   time_ms(lambda: conv2d_weight(x, wt.shape, dy, padding=1),
+                           per_window=10))}
+        for part, (ms, plain_ms, lib_ms) in t.items():
+            print(f"{tag} bf16 {part} at {(batch, c, h, w)}: kernel "
+                  f"{ms:.4f} ms"
+                  + ("" if plain_ms is None else f", plain {plain_ms:.4f} ms")
+                  + f", cuDNN {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                  f"({bound_by}; {flops / 1e9:.1f} GFLOP, "
+                  f"{nbytes / 1e6:.1f} MB) = {bound_ms / ms:.1%} of it")
+        sites[f"{h}x{w}"] = (t, bound_ms, bound_by)
+        del x, dy
+    return sites
+
+
+def phase_kernel_conv(seed: int):
+    """conv3x3_fwd (forward and dX) and conv3x3_dw against the plain
+    versions at the three site shapes and at odd and wide shapes, then the
+    bf16 times at every site beside the bound and cuDNN."""
+    from msml_torch.kernels.conv3x3 import (conv3x3_dw, conv3x3_dw_reference,
+                                            conv3x3_fwd, conv3x3_reference,
+                                            flip_weights)
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+    errs = check_conv_shapes(gen, CONV_SHAPES, B_TRAIN, "[2d conv3x3]")
     odd = []
     for (n, h, w), offset in itertools.product(ODD_SHAPES, (0, 1)):
         x = offset_bf16(gen, (n, 64, h, w), offset)
@@ -776,44 +890,8 @@ def phase_kernel_conv(seed: int):
           "off), relative L2 error forward/dX[/dW]: " + ", ".join(odd)
           + "; two runs bit-equal at each")
 
-    dtype = torch.bfloat16
-    sites = {}
-    for c, h, w in CONV_SHAPES:
-        x = torch.randn((B_TRAIN, c, h, w), generator=gen,
-                        device="cuda").to(dtype)
-        dy = torch.randn(x.shape, generator=gen, device="cuda").to(dtype)
-        wt = (torch.randn((c, c, 3, 3), generator=gen, device="cuda")
-              / 24).to(dtype)
-        wf = flip_weights(wt).contiguous()
-        flops = 2 * x.numel() * 9 * c  # per pass: 118.4 GFLOP at 112^2
-        nbytes = 2 * x.numel() * x.element_size()  # x and y, or x and dy
-        bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
-        bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS
-                    else "operations")
-        plain = (lambda fn: time_ms(fn, windows=3, per_window=3)) \
-            if (h, w) == CONV_SHAPES[0][1:] else (lambda fn: None)
-        t = {
-            "fwd": (time_ms(lambda: conv3x3_fwd(x, wt), per_window=10),
-                    plain(lambda: conv3x3_reference(x, wt)),
-                    time_ms(lambda: F.conv2d(x, wt, padding=1),
-                            per_window=10)),
-            "dx": (time_ms(lambda: conv3x3_fwd(dy, wf), per_window=10),
-                   plain(lambda: conv3x3_reference(dy, wf)),
-                   time_ms(lambda: conv2d_input(x.shape, wt, dy, padding=1),
-                           per_window=10)),
-            "dw": (time_ms(lambda: conv3x3_dw(x, dy), per_window=10),
-                   plain(lambda: conv3x3_dw_reference(x, dy)),
-                   time_ms(lambda: conv2d_weight(x, wt.shape, dy, padding=1),
-                           per_window=10))}
-        for part, (ms, plain_ms, lib_ms) in t.items():
-            print(f"[2d conv3x3] bf16 {part} at {(B_TRAIN, c, h, w)}: kernel "
-                  f"{ms:.4f} ms"
-                  + ("" if plain_ms is None else f", plain {plain_ms:.4f} ms")
-                  + f", cuDNN {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                  f"({bound_by}; {flops / 1e9:.1f} GFLOP, "
-                  f"{nbytes / 1e6:.1f} MB) = {bound_ms / ms:.1%} of it")
-        sites[f"{h}x{w}"] = (t, bound_ms, bound_by)
-        del x, dy
+    sites = time_conv_sites(gen, CONV_SHAPES, B_TRAIN, "[2d conv3x3]",
+                            plain_at=CONV_SHAPES[0])
     c, h, w = CONV_SHAPES[0]
     timed, bound_ms, bound_by = sites[f"{h}x{w}"]
     entries = []
@@ -909,16 +987,17 @@ def phase_model(seed: int):
     return model, B / ms * 1e3
 
 
-def synthetic_pairs(seed: int, pairs: int = 1200):
+def synthetic_pairs(seed: int, pairs: int = 1200, size: int = H):
     """Same pairs: an image and the image + 3; different pairs: two
-    independent images. Integer-valued float32 NHWC in [0, 255]."""
+    independent images. Integer-valued float32 NHWC RGB in [0, 255],
+    size x size."""
     rs = np.random.RandomState(seed)
-    first = rs.randint(0, 256, (pairs, H, W, 3)).astype(np.float32)
-    other = rs.randint(0, 256, (pairs, H, W, 3)).astype(np.float32)
+    first = rs.randint(0, 256, (pairs, size, size, 3)).astype(np.float32)
+    other = rs.randint(0, 256, (pairs, size, size, 3)).astype(np.float32)
     issame = [p % 2 == 0 for p in range(pairs)]
     second = np.where(np.asarray(issame)[:, None, None, None],
                       np.clip(first + 3, 0, 255), other)
-    data = np.stack([first, second], 1).reshape(2 * pairs, H, W, 3)
+    data = np.stack([first, second], 1).reshape(2 * pairs, size, size, 3)
     return [data, data[:, :, ::-1, :].copy()], issame
 
 
@@ -983,13 +1062,14 @@ def read_launches() -> dict:
     return {fn.__name__: fn.launches for fn in counted()}
 
 
-def per_step(steps: int) -> dict:
-    """Launches of `steps` train steps: one input stage, the PReLU pair at
-    every PReLU site, forward and dX at every conv site, dW at each."""
-    return expect(augment_batch=steps, prelu_fwd=steps * PRELU_SITES,
-                  prelu_bwd=steps * PRELU_SITES,
-                  conv3x3_fwd=steps * 2 * CONV_SITES,
-                  conv3x3_dw=steps * CONV_SITES)
+def per_step(steps: int, prelu: int = PRELU_SITES, conv: int = CONV_SITES,
+             augment: int = 1) -> dict:
+    """Launches of `steps` train steps: `augment` input stages, the PReLU
+    pair at every PReLU site, forward and dX at every conv site, dW at
+    each."""
+    return expect(augment_batch=steps * augment, prelu_fwd=steps * prelu,
+                  prelu_bwd=steps * prelu, conv3x3_fwd=steps * 2 * conv,
+                  conv3x3_dw=steps * conv)
 
 
 def phase_train(seed: int, steps: int = 30):
@@ -1036,7 +1116,8 @@ def phase_train(seed: int, steps: int = 30):
     return launches, img_s
 
 
-def profile_train(run_step, step_ms: float, steps: int = 4):
+def profile_train(run_step, step_ms: float, steps: int = 4,
+                  tag: str = "[5 train]"):
     """Device time by kernel over `steps` train steps (torch.profiler), and
     the busy share against the CUDA-event step time."""
     from torch.autograd import DeviceType
@@ -1052,11 +1133,11 @@ def profile_train(run_step, step_ms: float, steps: int = 4):
                and e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in kernels)
     if not busy_us:
-        print("[5 train] profile: no device time in the trace (not "
+        print(f"{tag} profile: no device time in the trace (not "
               "measured)")
         return
     per_step = busy_us / steps / 1e3
-    print(f"[5 train] profile, {steps} steps: device busy {per_step:.2f} ms "
+    print(f"{tag} profile, {steps} steps: device busy {per_step:.2f} ms "
           f"per step = {per_step / step_ms:.1%} of the {step_ms:.2f} ms "
           f"step, {len(kernels)} kernel names")
     groups = {"conv3x3 (CUDA)": ("fwd_bf16", "fwd_f32", "dw_bf16", "dw_f32",
@@ -1073,24 +1154,33 @@ def profile_train(run_step, step_ms: float, steps: int = 4):
                 shares[g] += e.self_device_time_total
                 break
     shares["other"] = busy_us - sum(shares.values())
-    print("[5 train] profile by group (ms per step, share of device "
+    print(f"{tag} profile by group (ms per step, share of device "
           "time): " + "; ".join(f"{g} {v / steps / 1e3:.2f} "
                                 f"({v / busy_us:.1%})"
                                 for g, v in shares.items()))
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
-        print(f"[5 train]   {e.self_device_time_total / steps / 1e3:8.3f} ms"
+        print(f"{tag}   {e.self_device_time_total / steps / 1e3:8.3f} ms"
               f"  x{e.count // steps:<4d} {e.key[:100]}")
 
 
 def phase_train_cpu_parity(seed: int, b: int = 4):
     """One float32 step (TF32 off) on the card against the CPU, from the
     same weights, batch and relight draws."""
+    train_cpu_parity(arc18_config(batch_size=b), seed, b, "[5 train]")
+
+
+def train_cpu_parity(cfg, seed: int, b: int, tag: str):
+    """One float32 step (TF32 off) of `cfg`'s model and step on the card
+    against the CPU, from the same weights, batch and relight draws:
+    metrics rtol 1e-3, the updates relative L2 error <= 1e-2."""
     from msml_torch.core.precision import FULL_PRECISION
     from msml_torch.data.synthetic import synthetic_batch
+    from msml_torch.nn.msml import msml_from_config
     from msml_torch.train.train_step import init_train_state, make_train_step
 
-    cfg = arc18_config(batch_size=b)
-    batch = synthetic_batch(b, num_classes=cfg.num_classes, seed=seed + 4,
+    batch = synthetic_batch(b, size=cfg.out_size[0],
+                            channels=1 if cfg.is_gray else 3,
+                            num_classes=cfg.num_classes, seed=seed + 4,
                             uint8=True)
     draws = torch.rand((b, 3), generator=torch.Generator().manual_seed(seed))
     tf32 = (torch.backends.cudnn.allow_tf32,
@@ -1100,8 +1190,8 @@ def phase_train_cpu_parity(seed: int, b: int = 4):
     try:
         out = {}
         for dev in ("cuda", "cpu"):
-            model = build_model(seed, policy=FULL_PRECISION, device=dev,
-                                head=True)
+            model = msml_from_config(cfg, policy=FULL_PRECISION, device=dev,
+                                     seed=seed, head=True)
             state = init_train_state(model, cfg, dev, seed)
             names = {p: n for n, p in model.named_parameters()}
             m = make_train_step(cfg)(state, batch, 1.0,
@@ -1124,7 +1214,7 @@ def phase_train_cpu_parity(seed: int, b: int = 4):
         fail(f"card vs CPU f32 step: update relative L2 error {err}")
     worst = max(uc, key=lambda k: ((ug[k] - uc[k]).norm()
                                    / uc[k].norm()).item())
-    print(f"[5 train] card f32 (TF32 off) vs CPU f32, one step at B={b}: "
+    print(f"{tag} card f32 (TF32 off) vs CPU f32, one step at B={b}: "
           "metrics " + ", ".join(f"{k} {mg[k]:.6f}/{mc[k]:.6f}" for k in mc)
           + f"; update relative L2 error {err:.2e} (worst tensor {worst} "
           f"{((ug[worst] - uc[worst]).norm() / uc[worst].norm()).item():.2e})")
@@ -1196,14 +1286,14 @@ def phase_cli(seed: int, smi: str, peer_sites: dict, steps: int = 20,
 
 def save_ab(seed: int, smi: str, cfg, steps: int = 30):
     """Phase 6's synthetic CLI run with blocking (`--sync-ckpt`) and
-    asynchronous saves in the order S A A S S A: each run's Speed by window
+    asynchronous saves, one run each (S A): each run's Speed by window
     end (the saves at 10 and 20 fall in the windows that end at 15 and 25),
     its saves' seconds on the loop, and its steps 6..30 in seconds (the sum
     of its windows)."""
     from msml_torch.cli.train import main, parse_args
 
     loop = {True: [], False: []}
-    for sync in (True, False, False, True, True, False):
+    for sync in (True, False):
         with tempfile.TemporaryDirectory() as out:
             main(parse_args(["--steps", str(steps), "--ckpt-every", "10",
                              "--log-every", "5", "--seed", str(seed),
@@ -1385,13 +1475,13 @@ def cli_weights(seed: int, folder: str, scratch: str, smi: str,
     return pth
 
 
-def pair_bin(path: str, seed: int, pairs: int) -> str:
+def pair_bin(path: str, seed: int, pairs: int, size: int = H) -> str:
     """`pairs` synthetic pairs as a .bin of binary PPM images."""
     import pickle
 
     from msml_torch.data.bin_loader import ppm_encode
 
-    data, issame = synthetic_pairs(seed, pairs)
+    data, issame = synthetic_pairs(seed, pairs, size)
     with open(path, "wb") as f:
         pickle.dump(([ppm_encode(a.astype(np.uint8)) for a in data[0]],
                      issame), f)
@@ -3123,6 +3213,577 @@ def phase_peer_eval(seed: int, smi: str, sites: dict, flagship_img_s: float):
     return launches
 
 
+# configs/lightcnn_msml.yaml, the LightCNN-29v2 gray recipe (a CPU test pins
+# the equality)
+LIGHTCNN_MSML = {
+    "dataset": "webface",
+    "fp16": True,
+    "batch_size": 256,
+    "frb_type": "lightcnn",
+    "osb_type": "unet",
+    "use_osb": True,
+    "fm_layers": [1, 1, 1, 1],
+    "fm_params": [3, 2, "tanh", "add"],
+    "peer_params": {"use_ori": False, "use_conv": False,
+                    "mask_trans": "conv", "use_decoder": False},
+    "header_type": "Softmax",
+    "header_params": [64.0, 0.5, 0.0, 0.0],
+    "exp_id": 1,
+    "output_prefix": "light_msml",
+}
+LIGHT_HW = 128          # gray 128 x 128 x 1 input
+LIGHT_B = 256           # the recipe's batch_size
+LIGHT_STEPS = 30        # train steps on one batch
+LIGHT_CLI_STEPS = 20    # cli.train on the yaml, a checkpoint every 10
+LIGHT_PEER_STEPS = 2    # ... and with the frozen teacher
+LIGHT_PRELU_SITES = 33  # 9 U-Net encoder + 24 FMCnn; LightCNN has none
+LIGHT_CONV_SITES = 5    # osb.layer1's three, fm_ops.3's two bottleneck convs
+LIGHT_CONV_SHAPES = ((64, 64, 64), (64, 32, 32), (64, 8, 8))  # (C, H, W)
+LIGHT_INT8_SITES = 93   # 92 convs and the fc
+LIGHT_PAIRS = 40        # the gray .bin of the sweeps
+LIGHT_EMBED = 8         # /embed requests (and 16 images in one /embed_batch)
+
+
+def light_config(**over):
+    from msml_torch.core.config import Config, config_init
+
+    cfg = Config.from_dict(dict(LIGHTCNN_MSML, **over))
+    config_init(cfg, make_output_dir=False)
+    return cfg
+
+
+def light_eval_launches(forwards: int) -> dict:
+    return expect(prelu_fwd=forwards * LIGHT_PRELU_SITES,
+                  conv3x3_fwd=forwards * LIGHT_CONV_SITES)
+
+
+def phase_light_kernels(seed: int, smi: str, model) -> dict:
+    """Phase 13 (a): the kernels at the recipe's shapes against their plain
+    versions, with phase 2's tolerances, and their times: `augment_batch`
+    on gray images (uint8 at B = 256, the train stage; f32 at B = 512, the
+    sweep) with `use_norm` off; conv3x3 forward, dX and dW at the recipe's
+    routed sites (64^2, 32^2, 8^2) at B = 256; the PReLU pair at each
+    distinct PReLU shape of the recipe at B = 256."""
+    from msml_torch.kernels.augment import (augment_batch,
+                                            augment_batch_reference)
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 13)
+    shape8 = (LIGHT_B, LIGHT_HW, LIGHT_HW, 1)
+    imgs8 = [torch.randint(0, 256, shape8, generator=gen, device="cuda",
+                           dtype=torch.uint8) for _ in range(12)]
+    imgsf = [torch.rand((B, LIGHT_HW, LIGHT_HW, 1), generator=gen,
+                        device="cuda") for _ in range(3)]
+    max_err = 0.0
+    for img in (imgs8[0], imgsf[0]):
+        n = img.shape[0]
+        draws = torch.rand((n, 6), generator=gen, device="cuda")
+        noise = torch.randn(img.shape, generator=gen, device="cuda")
+        for fill, relight, (lo, hi) in itertools.product(
+                ("black", "gauss"), (True, False), ((0, 1), (20, 51))):
+            kw = dict(lo=lo, hi=hi, fill=fill, relight=relight,
+                      use_norm=False)
+            err = (augment_batch(img, draws, noise, **kw)
+                   - augment_batch_reference(img, draws, noise, **kw)
+                   ).abs().max().item()
+            if not err <= KERNEL_TOL:
+                fail(f"light augment {img.dtype} {tuple(img.shape)}: max abs "
+                     f"diff {err} at {kw}")
+            max_err = max(max_err, err)
+    timed = {}
+    for name, batch_imgs, kw in (
+            ("train stage", imgs8, dict(lo=0, hi=1, fill="black",
+                                        relight=True, use_norm=False)),
+            ("sweep", imgsf, dict(MAIN_PATH, use_norm=False))):
+        img = batch_imgs[0]
+        draws = torch.rand((img.shape[0], 6), generator=gen, device="cuda")
+        check_bit_equal(lambda: augment_batch(img, draws, **kw), name)
+        moved = augment_bytes(img, draws, kw)
+        ms = time_graph_ms([lambda x=x: augment_batch(x, draws, **kw)
+                            for x in batch_imgs])
+        plain_ms = time_ms(lambda: augment_batch_reference(img, draws, **kw))
+        bound_ms = moved / HBM_BYTES_PER_S * 1e3
+        timed[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                       "shape": list(img.shape), "dtype": str(img.dtype)[6:]}
+        print(f"[13a light] {smi}: augment_batch {name} at "
+              f"{tuple(img.shape)} {str(img.dtype)[6:]}, use_norm off: "
+              f"{ms:.4f} ms (plain {plain_ms:.4f} ms), {moved / 1e6:.1f} MB "
+              f"moved, bound {bound_ms:.4f} ms = {bound_ms / ms:.1%} of the "
+              "memory rate; two runs bit-equal")
+    print(f"[13a light] augment_batch on gray uint8 {shape8} and f32 "
+          f"{(B, LIGHT_HW, LIGHT_HW, 1)}, 8 option sets each: max abs diff "
+          f"{max_err} (tolerance {KERNEL_TOL})")
+    del imgs8, imgsf
+
+    conv_errs = check_conv_shapes(gen, LIGHT_CONV_SHAPES, LIGHT_B,
+                                  "[13a light conv3x3]")
+    conv = time_conv_sites(gen, LIGHT_CONV_SHAPES, LIGHT_B,
+                           f"[13a light conv3x3] {smi}:",
+                           plain_at=LIGHT_CONV_SHAPES[0])
+
+    sites = prelu_shapes(model, torch.zeros((2, 1, LIGHT_HW, LIGHT_HW),
+                                            device="cuda"))
+    if len(sites) != LIGHT_PRELU_SITES:
+        fail(f"{len(sites)} PReLU sites in the LightCNN recipe, expected "
+             f"{LIGHT_PRELU_SITES}")
+    shapes = sorted(set(sites), key=lambda s: -s[0] * s[1] * s[2])
+    prelu_errs, worst_da = check_prelu_shapes(gen, shapes, LIGHT_B)
+    print(f"[13a light prelu] {len(sites)} sites, {len(shapes)} distinct "
+          f"(C, H, W) {shapes} at B={LIGHT_B}, bf16 and f32: y and dx "
+          "exactly equal to the plain version; dalpha relative L2 error "
+          + ", ".join(f"{str(k)[6:]} {v:.2e}" for k, v in worst_da.items()))
+    c, h, w = shapes[0]
+    prelu = time_prelu(gen, (LIGHT_B, c, h, w), f"[13a light prelu] {smi}:")
+    torch.cuda.empty_cache()
+    print(f"[13a light] phase 13 (a) {time.perf_counter() - t_phase:.1f} s "
+          "host clock")
+    return {"augment": timed, "augment_err": max_err, "conv": conv,
+            "conv_errs": conv_errs, "prelu": prelu[torch.bfloat16],
+            "prelu_shape": [LIGHT_B, c, h, w], "prelu_errs": prelu_errs}
+
+
+def phase_light_eval(seed: int, smi: str, model, flagship_img_s: float):
+    """Phase 13 (b): the recipe's bf16 eval forward at B = 512 on gray
+    128 x 128 images: (feature (B, 256), final_seg (B, 2, 128, 128)), its
+    launches, img/s; against the float32 model on the card (TF32 off) and
+    on the CPU; -> (launches of one forward, img/s)."""
+    from msml_torch.core.precision import FULL_PRECISION
+    from msml_torch.kernels.augment import augment_batch
+    from msml_torch.nn.msml import msml_from_config
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 14)
+    x = augment_batch(torch.rand((B, LIGHT_HW, LIGHT_HW, 1), generator=gen,
+                                 device="cuda"),
+                      torch.rand((B, 6), generator=gen, device="cuda"),
+                      use_norm=False)
+    with torch.inference_mode():
+        reset_launches()
+        feat, seg = model(x)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        if (launches != light_eval_launches(1) or feat.shape != (B, 256)
+                or seg.shape != (B, 2, LIGHT_HW, LIGHT_HW)
+                or not torch.isfinite(feat).all()
+                or not torch.isfinite(seg).all()):
+            fail(f"light eval: launches {launches}, feature "
+                 f"{tuple(feat.shape)}, seg {tuple(seg.shape)}")
+        ms = time_ms(lambda: model(x), windows=3, per_window=5)
+    img_s = B / ms * 1e3
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        model32 = msml_from_config(light_config(), policy=FULL_PRECISION,
+                                   device="cuda", seed=seed)
+        with torch.inference_mode():
+            feat32, seg32 = model32(x[:64])
+        del model32
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+    cos16 = cosines(feat[:64], feat32).min().item()
+    model_cpu = msml_from_config(light_config(), policy=FULL_PRECISION,
+                                 device="cpu", seed=seed)
+    with torch.inference_mode():
+        feat_cpu, seg_cpu = model_cpu(x[:4].cpu())
+    cos_cpu = cosines(feat32[:4], feat_cpu).min().item()
+    seg_err = ((seg32[:4].cpu() - seg_cpu).abs().max()
+               / seg_cpu.abs().max()).item()
+    if not (cos16 >= BF16_MIN_COS and cos_cpu >= CPU_MIN_COS
+            and seg_err <= 1e-3):
+        fail(f"light eval: bf16 vs f32 cosine {cos16}, card f32 vs CPU "
+             f"cosine {cos_cpu}, relative seg err {seg_err}")
+    print(f"[13b light] {smi}: configs/lightcnn_msml.yaml's bf16 eval "
+          f"forward, B={B}, gray {LIGHT_HW}^2: {ms:.2f} ms = {img_s:.1f} "
+          f"img/s (arc18_msml's {flagship_img_s:.1f} img/s in phase 3); "
+          f"launches {launches}; bf16 vs f32 (TF32 off), 64 images: min "
+          f"feature cosine {cos16:.6f} (>= {BF16_MIN_COS}); card f32 vs CPU "
+          f"f32, 4 images: min cosine {cos_cpu:.8f} (>= {CPU_MIN_COS}), "
+          f"relative seg err {seg_err:.2e} (<= 1e-3)")
+    return launches, img_s
+
+
+def phase_light_train(seed: int, smi: str):
+    """Phase 13 (c): the recipe's train step, B = 256, webface's 10,572
+    classes, bf16, synthetic gray uint8 batches with `device_light` (the
+    augment kernel at C = 1, `use_norm` off): 30 steps on one batch lower
+    total_loss, every metric finite, each kernel launched as the module
+    sites say; img/s and a profile; one float32 step on the card against
+    the CPU; -> (launches of the 30 steps, img/s)."""
+    from msml_torch.core.config import lr_step_factor
+    from msml_torch.data.synthetic import synthetic_batch
+    from msml_torch.nn.common import routed_conv_sites
+    from msml_torch.nn.msml import msml_from_config
+    from msml_torch.train.train_step import init_train_state, make_train_step
+
+    t_phase = time.perf_counter()
+    cfg = light_config(device_light=True)
+    model = msml_from_config(cfg, device="cuda", seed=seed, head=True)
+    if len(routed_conv_sites(model)) != LIGHT_CONV_SITES:
+        fail(f"light: routed conv3x3 sites {routed_conv_sites(model)}")
+    state = init_train_state(model, cfg, "cuda", seed)
+    step = make_train_step(cfg)
+    host = synthetic_batch(LIGHT_B, size=LIGHT_HW, channels=1,
+                           num_classes=cfg.num_classes, seed=seed,
+                           uint8=True)
+    batch = {k: torch.as_tensor(host[k], device="cuda")
+             for k in ("img", "label", "msk")}
+    lr = lr_step_factor(cfg, 0)
+    reset_launches()
+    history = [step(state, batch, lr) for _ in range(LIGHT_STEPS)]
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want = per_step(LIGHT_STEPS, LIGHT_PRELU_SITES, LIGHT_CONV_SITES)
+    if launches != want:
+        fail(f"light train launches {launches}, expected {want}")
+    for i, m in enumerate(history):
+        bad = [k for k, v in m.items() if not torch.isfinite(v).item()]
+        if bad:
+            fail(f"light train: non-finite {bad} at step {i}")
+    losses = [m["total_loss"].item() for m in history]
+    if not losses[-1] < losses[0]:
+        fail(f"light train: total_loss did not fall: {losses}")
+    ms = time_ms(lambda: step(state, batch, lr), windows=3, per_window=3)
+    img_s = LIGHT_B / ms * 1e3
+    print(f"[13c light] {smi}: the recipe's train step (device_light, gray "
+          f"uint8), {cfg.num_classes} classes, B={LIGHT_B}, bf16, "
+          f"{LIGHT_STEPS} steps on one batch: total_loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; then {ms:.2f} ms = {img_s:.1f} img/s (median "
+          "of 3 windows of 3 steps, CUDA events); launches per step "
+          + ", ".join(f"{k} {v // LIGHT_STEPS}" for k, v in launches.items())
+          + f" ({LIGHT_PRELU_SITES} PReLU sites, {LIGHT_CONV_SITES} conv3x3 "
+          "sites)")
+    profile_train(lambda: step(state, batch, lr), ms, tag="[13c light]")
+    del state, model, step, batch
+    torch.cuda.empty_cache()
+    train_cpu_parity(light_config(device_light=True, batch_size=4), seed, 4,
+                     "[13c light]")
+    print(f"[13c light] phase 13 (c) {time.perf_counter() - t_phase:.1f} s "
+          "host clock")
+    return launches, img_s
+
+
+def light_cli(seed: int, smi: str) -> dict:
+    """Phase 13 (d): the recipe through the entry points: `cli.train` on
+    the yaml with `dataset: synthetic` (10,572 classes, host-float batches
+    as the yaml runs them) for 20 steps with checkpoints; on the folder it
+    wrote `cli.test --device-sweep` and the host sweep (BB) over a gray
+    .bin, `cli.serve` (/embed and /embed_batch against a direct forward),
+    `tools.export_serving`, `--quant int8` (every distinct int8 geometry
+    bit-equal to the plain kernels, the B = 512 forward against bf16);
+    then `use_ori` with `peer_weights` = the folder's backbone.pth; ->
+    launches by path."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from msml_torch.cli import serve
+    from msml_torch.cli import test as cli_test
+    from msml_torch.cli.train import main, parse_args
+    from msml_torch.core.checkpoint import all_steps
+    from msml_torch.core.config import Config
+    from msml_torch.core.quantize import quantize_eval_model
+    from msml_torch.core.weight_folder import load_weight_folder
+    from msml_torch.data.bin_loader import ppm_encode
+    from msml_torch.eval.folder_eval import tensorize_folder_img
+    from msml_torch.eval.verification import l2_normalize_np
+    from msml_torch.kernels.augment import augment_batch
+    from msml_torch.tools import export_serving, export_torch
+    from msml_torch.tools.load_weights import is_leaf, load_source
+    from msml_torch.tools.qconv_ab import int8_sites_of
+
+    t_phase = time.perf_counter()
+    launches = {}
+    with tempfile.TemporaryDirectory() as out:
+        def cfg(**over):
+            return Config.from_dict(dict(LIGHTCNN_MSML, dataset="synthetic",
+                                         num_classes=10572, out_folder=out,
+                                         **over))
+
+        argv = ["--ckpt-every", "10", "--log-every", "5", "--seed",
+                str(seed), "--device", "cuda"]
+        reset_launches()
+        t0 = time.perf_counter()
+        state = main(parse_args(argv + ["--steps", str(LIGHT_CLI_STEPS)]),
+                     cfg())
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches["light_cli"] = read_launches()
+        folder = os.path.join(out, "light_msml_1")
+        with open(os.path.join(folder, "training.log")) as f:
+            log = f.read()
+        losses = [float(v) for v in re.findall(r" Loss (\S+) ", log)]
+        speeds = [float(v) for v in
+                  re.findall(r"Speed (\S+) samples/sec", log)]
+        want = per_step(LIGHT_CLI_STEPS, LIGHT_PRELU_SITES, LIGHT_CONV_SITES,
+                        augment=0)
+        if (state.step != LIGHT_CLI_STEPS or launches["light_cli"] != want
+                or not speeds or not losses
+                or not all(math.isfinite(v) for v in losses)
+                or all_steps(folder) != [10, LIGHT_CLI_STEPS]):
+            fail(f"light cli: step {state.step}, launches "
+                 f"{launches['light_cli']} (expected {want}), Speed "
+                 f"{speeds}, losses {losses}, checkpoints "
+                 f"{all_steps(folder)}")
+        print(f"[13d light] {smi}: cli.train on configs/lightcnn_msml.yaml "
+              f"(dataset synthetic, 10572 classes, host-float gray batches "
+              f"as the yaml runs them, B={LIGHT_B}, bf16), "
+              f"{LIGHT_CLI_STEPS} steps in {seconds:.1f} s host clock (model "
+              f"build and 2 checkpoints included); Speed (samples/s) "
+              f"{speeds}; losses {[round(v, 4) for v in losses]}; "
+              f"checkpoints {all_steps(folder)}; launches "
+              f"{launches['light_cli']}")
+        del state
+        torch.cuda.empty_cache()
+
+        # the sweeps on a gray .bin
+        pairs_bin = pair_bin(os.path.join(out, "pairs.bin"), seed,
+                             LIGHT_PAIRS, LIGHT_HW)
+        reset_launches()
+        t0 = time.perf_counter()
+        rows = cli_test.main(cli_test.parse_args(
+            ["--device-sweep", "--weight_folder", folder, "--bin",
+             pairs_bin, "--device", "cuda"]))
+        torch.cuda.synchronize()
+        launches["light_cli_sweep"] = read_launches()
+        batches = (1 + 9 * 10) * 2
+        want = dict(light_eval_launches(batches), augment_batch=batches)
+        if (len(rows) != 10 or launches["light_cli_sweep"] != want
+                or not all(math.isfinite(r["avg_acc"]) for r in rows)):
+            fail(f"light sweep: {len(rows)} rows, launches "
+                 f"{launches['light_cli_sweep']} (expected {want})")
+        print(f"[13d light] cli.test --device-sweep on the folder, "
+              f"{LIGHT_PAIRS} gray pairs: {time.perf_counter() - t0:.1f} s; "
+              "avg_acc " + ", ".join(f"{r['lo']}%: {r['avg_acc']:.4f}"
+                                     for r in rows)
+              + f"; launches {launches['light_cli_sweep']}")
+        rows, host, spent = host_sweep(
+            ["--weight_folder", folder, "--bin", pairs_bin, "--device",
+             "cuda", "--repeats", "1"])
+        launches["light_cli_host_sweep"] = host
+        forwards = host["conv3x3_fwd"] // LIGHT_CONV_SITES
+        if (not forwards or host != light_eval_launches(forwards)
+                or len(rows) != 10
+                or not all(math.isfinite(r["avg_acc"]) for r in rows)):
+            fail(f"light host sweep: launches {host}, rows {rows}")
+        print(f"[13d light] cli.test (host sweep, BB, 1 repeat, PIL 'L') on "
+              f"the folder: {spent['wall']:.1f} s ({spent['forward']:.1f} s "
+              f"forward), {forwards} forwards; avg_acc at 0% "
+              f"{rows[0]['avg_acc']:.4f}; launches {host}")
+
+        # cli.serve: /embed and /embed_batch against a direct forward
+        rs = np.random.RandomState(seed + 13)
+        raw = rs.randint(0, 256, (16 + LIGHT_EMBED, LIGHT_HW, LIGHT_HW, 3)
+                         ).astype(np.uint8)
+        x = np.stack([tensorize_folder_img(a, (LIGHT_HW, LIGHT_HW), False,
+                                           True) for a in raw])
+        _, model = load_weight_folder(folder, device="cuda")
+        fwd = export_serving.EvalForward(model)
+        with torch.inference_mode():
+            xt = torch.as_tensor(x, device="cuda")
+            ref = l2_normalize_np((fwd(xt) + fwd(xt.flip(2))).float().cpu()
+                                  .numpy())
+        del fwd
+        runner = serve.runner_from_weight_folder(folder, "cuda")
+        forwards = count_forwards(runner)
+        base, httpd, batcher, _ = start_server(runner)
+        try:
+            forwards.clear()
+            reset_launches()
+            _, answer = post(base + "/embed_batch", npy_bytes(x[:16]))
+            with ThreadPoolExecutor(LIGHT_EMBED) as pool:
+                replies = list(pool.map(
+                    lambda a: post(base + "/embed", ppm_encode(a)),
+                    raw[16:]))
+            torch.cuda.synchronize()
+            launches["light_serve"] = read_launches()
+        finally:
+            stop_server(httpd, batcher)
+        got = np.concatenate([np.asarray(answer["embeddings"]),
+                              np.asarray([r[1]["embedding"]
+                                          for r in replies])])
+        cos = float(np.min(np.sum(l2_normalize_np(got) * ref, axis=1)))
+        if (got.shape != (16 + LIGHT_EMBED, 256) or not cos >= SERVE_MIN_COS
+                or launches["light_serve"]
+                != light_eval_launches(len(forwards))):
+            fail(f"light serve: {got.shape}, min cosine {cos}, launches "
+                 f"{launches['light_serve']} over {len(forwards)} forwards")
+        print(f"[13d light] cli.serve on the folder: /embed_batch of 16 and "
+              f"{LIGHT_EMBED} concurrent /embed (PPM, gray transform): min "
+              f"cosine to a direct forward {cos:.6f} (>= {SERVE_MIN_COS}); "
+              f"{len(forwards)} forwards, launches {launches['light_serve']}")
+
+        artifact = os.path.join(out, "light.pt2")
+        t0 = time.perf_counter()
+        export_serving.main(export_serving.parse_args(
+            ["--weight_folder", folder, "--out", artifact, "--device",
+             "cuda"]))
+        export_s = time.perf_counter() - t0
+        arunner = serve.runner_from_artifact(artifact, "cuda")
+        aforwards = count_forwards(arunner)
+        reset_launches()
+        art = arunner.infer(x[:16])
+        torch.cuda.synchronize()
+        alaunches = read_launches()
+        cos_art = float(np.min(np.sum(art * ref[:16], axis=1)))
+        if (alaunches != light_eval_launches(len(aforwards))
+                or not cos_art >= SERVE_MIN_COS):
+            fail(f"light export_serving: launches {alaunches}, min cosine "
+                 f"{cos_art}")
+        print(f"[13d light] tools.export_serving wrote "
+              f"{os.path.getsize(artifact)} bytes in {export_s:.1f} s; the "
+              f"artifact's features of 16 images: min cosine to the direct "
+              f"forward {cos_art:.6f}; launches {alaunches}")
+        del arunner
+
+        # --quant int8
+        gen = torch.Generator(device="cuda").manual_seed(seed + 15)
+        xq = augment_batch(torch.rand((B, LIGHT_HW, LIGHT_HW, 1),
+                                      generator=gen, device="cuda"),
+                           torch.rand((B, 6), generator=gen, device="cuda"),
+                           use_norm=False)
+        qmodel = quantize_eval_model(model, (LIGHT_HW, LIGHT_HW, 1))
+        sites = int8_sites_of(qmodel, xq[:QUANT_CHECK_B])
+        n_sites = sum(len(f) for f in sites.values())
+        if n_sites != LIGHT_INT8_SITES:
+            fail(f"light quant: {n_sites} int8 sites, expected "
+                 f"{LIGHT_INT8_SITES}")
+        err = max(check_quant_site(f[0][1], f[0][2]) for f in sites.values())
+        fc = next(f[0][1] for k, f in sites.items() if k[0] == "linear")
+        fc_in = {}
+        hook = fc.register_forward_pre_hook(
+            lambda mod, args: fc_in.setdefault("x", args[0]))
+        with torch.inference_mode():
+            want_f = model(xq)[0]
+            torch.cuda.synchronize()
+            reset_launches()
+            got_q = qmodel(xq)[0]
+            torch.cuda.synchronize()
+            launches["light_quant"] = read_launches()
+        hook.remove()
+        err = max(err, check_quant_site(fc, fc_in.pop("x")))
+        per_image = cosines(got_q, want_f)
+        qcos, qmin = per_image.mean().item(), per_image.min().item()
+        want = expect(prelu_fwd=LIGHT_PRELU_SITES,
+                      quant_act=LIGHT_INT8_SITES,
+                      qconv_int8=LIGHT_INT8_SITES)
+        if (launches["light_quant"] != want or got_q.shape != (B, 256)
+                or not torch.isfinite(got_q).all()
+                or not qcos >= QUANT_MEAN_COS or not qmin >= QUANT_FLOOR_COS):
+            fail(f"light quant: launches {launches['light_quant']} "
+                 f"(expected {want}), feature cosine to bf16 mean {qcos} (>= "
+                 f"{QUANT_MEAN_COS}), min {qmin} (>= {QUANT_FLOOR_COS})")
+        with torch.inference_mode():
+            ms_q = time_ms(lambda: qmodel(xq), windows=3, per_window=5)
+            ms_f = time_ms(lambda: model(xq), windows=3, per_window=5)
+        print(f"[13d light] {smi}: --quant int8 on the folder: "
+              f"{n_sites} int8 sites in {len(sites)} distinct "
+              f"geometries, quant_act and qconv_int8 bit-equal to their "
+              f"plain versions at each (B = {QUANT_CHECK_B}) and at the fc "
+              f"at B = {B} (max abs diff {err}); B = {B} forward: feature "
+              f"cosine to bf16 mean {qcos:.6f} (>= {QUANT_MEAN_COS}), min "
+              f"{qmin:.6f} (>= {QUANT_FLOOR_COS}); int8 {ms_q:.2f} ms = "
+              f"{B / ms_q * 1e3:.1f} img/s, bf16 {ms_f:.2f} ms = "
+              f"{B / ms_f * 1e3:.1f} img/s (same call); launches "
+              f"{launches['light_quant']}")
+        del qmodel, model, sites, got_q, want_f, xq
+        torch.cuda.empty_cache()
+
+        # use_ori with peer_weights = the folder's backbone.pth
+        pth = os.path.join(out, "backbone.pth")
+        export_torch.main(export_torch.parse_args(
+            ["--weight_folder", folder, "--out", pth]))
+        peer_out = os.path.join(out, "peer")
+        reset_launches()
+        state = main(parse_args(argv + ["--steps", str(LIGHT_PEER_STEPS)]),
+                     Config.from_dict(dict(
+                         LIGHTCNN_MSML, dataset="synthetic",
+                         num_classes=10572, out_folder=peer_out,
+                         peer_weights=pth,
+                         peer_params=dict(LIGHTCNN_MSML["peer_params"],
+                                          use_ori=True))))
+        torch.cuda.synchronize()
+        launches["light_peer_cli"] = read_launches()
+        src = load_source(pth)
+        n_leaves = sum(1 for k in src if k.startswith("frb.")
+                       and not k.startswith(("frb.fm_ops.", "frb.peer."))
+                       and is_leaf(k))
+        with open(os.path.join(peer_out, "light_msml_1",
+                               "training.log")) as f:
+            plog = f.read()
+        teacher = state.model.frb.peer.state_dict()
+        differ = [k for k in teacher if not torch.equal(
+            teacher[k].cpu(), src["frb." + k].float())]
+        want = per_step(LIGHT_PEER_STEPS, LIGHT_PRELU_SITES,
+                        LIGHT_CONV_SITES, augment=0)
+        if (state.step != LIGHT_PEER_STEPS or differ
+                or launches["light_peer_cli"] != want
+                or f"loaded {n_leaves} peer tensors from {pth}" not in plog
+                or state.model.frb.peer.training):
+            fail(f"light peer cli: step {state.step}, teacher differs at "
+                 f"{differ[:4]}, launches {launches['light_peer_cli']} "
+                 f"(expected {want})")
+        print(f"[13d light] cli.train with use_ori and peer_weights = the "
+              f"folder's backbone.pth ({n_leaves} tensors logged): "
+              f"{LIGHT_PEER_STEPS} steps, the PeerLightCNN teacher "
+              f"bit-equal to the file after them, eval mode; launches "
+              f"{launches['light_peer_cli']}; phase 13 (d) "
+              f"{time.perf_counter() - t_phase:.1f} s host clock")
+        del state
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_light(seed: int, smi: str, flagship_img_s: float):
+    """Phase 13: the LightCNN-29v2 gray recipe; -> (launches by path,
+    kernel results at its shapes, eval img/s, train img/s)."""
+    from msml_torch.nn.msml import msml_from_config
+
+    t_phase = time.perf_counter()
+    model = msml_from_config(light_config(), device="cuda", seed=seed)
+    kernels = phase_light_kernels(seed, smi, model)
+    eval_launches, eval_img_s = phase_light_eval(seed, smi, model,
+                                                 flagship_img_s)
+    del model
+    torch.cuda.empty_cache()
+    train_launches, train_img_s = phase_light_train(seed, smi)
+    launches = light_cli(seed, smi)
+    launches.update(light_train_step=train_launches,
+                    light_eval=eval_launches)
+    print(f"[13 light] {smi}: phase 13 {time.perf_counter() - t_phase:.1f} "
+          "s host clock")
+    return launches, kernels, eval_img_s, train_img_s
+
+
+def light_at_recipe_shapes(entries: list, light: dict):
+    """Phase 13 (a)'s results on the kernels line: each kernel's times at
+    the LightCNN recipe's shapes under "light", its error folded into
+    max_abs_err."""
+    for e in entries:
+        name = e["name"]
+        if name == "augment_batch":
+            e["light"] = light["augment"]
+            err = light["augment_err"]
+        elif name.startswith("prelu"):
+            part = "fwd" if name == "prelu_fwd" else "bwd"
+            ms, plain_ms, lib_ms, bound_ms = light["prelu"][part]
+            e["light"] = {"ms": ms, "plain_ms": plain_ms,
+                          "library_ms": lib_ms, "bound_ms": bound_ms,
+                          "shape": light["prelu_shape"]}
+            err = light["prelu_errs"][part]
+        elif name.startswith("conv3x3"):
+            parts = ("fwd", "dx") if name == "conv3x3_fwd" else ("dw",)
+            e["light"] = {"sites": {
+                site: {p: {"ms": t[p][0], "plain_ms": t[p][1],
+                           "library_ms": t[p][2]} for p in parts}
+                | {"bound_ms": bound, "bound_by": by}
+                for site, (t, bound, by) in light["conv"].items()},
+                "batch": LIGHT_B}
+            err = light["conv_errs"]["dw" if name == "conv3x3_dw" else "fwd"]
+        else:
+            continue
+        e["max_abs_err"] = max(e["max_abs_err"], err)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -3153,6 +3814,8 @@ def main(argv=None):
     peer_launches.update(peer_cli_launches)
     quant_entries, quant_launches, quant_sweep_launches, quant_serve = quant
     rec_launches = phase_data(args.seed, smi, cli_speeds)
+    light_launches, light, light_eval_img_s, light_train_img_s = \
+        phase_light(args.seed, smi, eval_img_s)
 
     # this slice's path is the training CLI: its launches; the uint8 input
     # stage's times at B = 128, and the eval and train-step paths' launches
@@ -3179,8 +3842,11 @@ def main(argv=None):
         e["launches_cli_host_sweep"] = host_launches[e["name"]]
         for path, counts in peer_launches.items():
             e["launches_" + path] = counts[e["name"]]
+        for path, counts in light_launches.items():
+            e["launches_" + path] = counts[e["name"]]
         e["max_abs_err"] = max(e["max_abs_err"],
                                serve_errs.get(e["name"], 0.0))
+    light_at_recipe_shapes(entries, light)
     img_s = quant_entries[0]["img_s"]
     print(f"[7 summary] {smi}: the run in "
           f"{time.perf_counter() - t_run:.1f} s host clock; CLI "
@@ -3189,7 +3855,10 @@ def main(argv=None):
           f"{img_s['bf16']:.1f}, same call) at B={B}; "
           f"train step {train_img_s:.1f} img/s bf16 at B={B_TRAIN}; eval "
           f"forward {eval_img_s:.1f} img/s at B={B}; the peer-KD recipe's "
-          f"train step {peer_img_s:.1f} img/s bf16 at B={PEER_B}; "
+          f"train step {peer_img_s:.1f} img/s bf16 at B={PEER_B}; the "
+          f"LightCNN recipe's train step {light_train_img_s:.1f} img/s bf16 "
+          f"at B={LIGHT_B}, its eval forward {light_eval_img_s:.1f} img/s at "
+          f"B={B}; "
           + "; ".join(f"{e['name']} {e['ms']:.4f} ms (bound "
                       f"{e['bound_ms']:.4f} ms)" for e in entries))
     print(json.dumps({"kernels": entries}))

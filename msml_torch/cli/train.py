@@ -30,17 +30,20 @@ PyYAML).
 
 A config's `pretrained_backbone` and `peer_weights` (each a `.npz` of
 `tools/export_frb.py`, a reference or exported `backbone.pth`, a vanilla
-iResNet `.pth` or a `ckpt/<step>.pt`) are overlaid on the fresh model,
-the first on the backbone and the second on the frozen teacher, before
-the first step (`tools/load_weights.py`); `--resume` then wins over
-both.
+iResNet or LightCNN `.pth` or a `ckpt/<step>.pt`) are overlaid on the
+fresh model, the first on the backbone and the second on the frozen
+teacher, before the first step (`tools/load_weights.py`); `--resume`
+then wins over both.
 
 On `--resume` the run continues from the latest checkpoint's step and, as
 the JAX CLI does (`msml_tpu/cli/train.py:276-306`), replays the
 interrupted epoch from its first batch. SIGTERM saves a checkpoint at the
-next step boundary and exits cleanly. Not ported yet, and refused:
-`--strategy`, `--scan-steps` above 1, `--multihost`, PartialFC, a
-`dropout` other than 0 and the LightCNN FRB.
+next step boundary and exits cleanly. Both FRB families train: the
+iResNet recipes and the LightCNN-29v2 gray recipe
+(`configs/lightcnn_msml.yaml`: 128 x 128 x 1 batches, no input
+normalization, its frozen `PeerLightCNN` teacher with `use_ori`). Not
+ported yet, and refused: `--strategy`, `--scan-steps` above 1,
+`--multihost`, PartialFC and a `dropout` other than 0.
 """
 
 from __future__ import annotations

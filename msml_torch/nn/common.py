@@ -120,6 +120,12 @@ def batch_norm(channels: int) -> BatchNorm2d:
     return BatchNorm2d(channels, eps=1e-5, momentum=0.1)
 
 
+def max_avg_pool2(x: torch.Tensor) -> torch.Tensor:
+    """F.max_pool2d(x, 2) + F.avg_pool2d(x, 2), LightCNN's downsampling
+    (`backbones/frb/lightcnn.py:211`)."""
+    return F.max_pool2d(x, 2) + F.avg_pool2d(x, 2)
+
+
 def conv_transpose(in_planes: int, out_planes: int, kernel_size: int,
                    stride: int = 2, padding: int = 1,
                    bias: bool = False) -> nn.ConvTranspose2d:
@@ -146,9 +152,11 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded initialisation of every parameter and buffer of `model`.
 
     Mirrors the reference flax initialisers: lecun-normal conv and dense
-    kernels, he-normal transposed-conv kernels, xavier-uniform head weights,
-    zero biases, unit BN scale, BN running statistics (0, 1), PReLU slope
-    0.25. Draws on the CPU from `generator`, then copies onto the
+    kernels (LightCNN's mfm convs and `fc` too: flax's `nn.Conv` and
+    `nn.Dense` defaults), he-normal transposed-conv kernels, xavier-uniform
+    head weights, zero biases, unit BN scale, BN running statistics
+    (0, 1), PReLU slope 0.25. The same distributions as flax's, not the
+    same draws. Draws on the CPU from `generator`, then copies onto the
     parameters' device."""
 
     def normal_(t: torch.Tensor, std: float) -> None:

@@ -26,7 +26,7 @@ from msml_torch import resolve_device
 from msml_torch.core.precision import DEFAULT_POLICY, Policy, \
     policy_from_config
 from msml_torch.heads.margin import MarginHead, SoftmaxHead
-from msml_torch.nn import iresnet
+from msml_torch.nn import iresnet, lightcnn
 from msml_torch.nn.common import init_parameters
 from msml_torch.nn.fm import FMCnn, FMNone
 from msml_torch.nn.unet import Unet
@@ -62,15 +62,20 @@ class MSML(nn.Module):
                 "fm_layers requires use_osb=True (FM operators consume OSB "
                 "segmentation features; the reference crashes on this "
                 "combination too, fmoperator.py:285)")
-        if "lightcnn" in frb_type:
-            raise NotImplementedError("the LightCNN FRB is not ported yet")
-        input_size, _gray, _heights, f_channels, dim_feature = frb_shapes(
+        input_size, gray, _heights, f_channels, dim_feature = frb_shapes(
             frb_type)
-        if not isinstance(width_mult, int):
+        wms = (list(width_mult) if isinstance(width_mult, (list, tuple))
+               else [width_mult] * 4)
+        if "lightcnn" in frb_type:
+            if any(w != 1 for w in wms):
+                raise ValueError("width_mult != 1 is an iresnet-FRB knob")
+            width_mult = 1
+        elif not isinstance(width_mult, int):
             raise NotImplementedError(
                 "only an integer width_mult is ported so far")
         self.policy = policy
         self.dim_feature = dim_feature
+        in_channels = 1 if gray else 3
         f_channels = tuple(c * width_mult for c in f_channels)
 
         kernel_size, num_res, act, arith = fm_params
@@ -87,16 +92,22 @@ class MSML(nn.Module):
             else:
                 raise ValueError("FM Operators type error")
 
-        self.frb = iresnet.IResNet(layers=iresnet.IRESNET_LAYERS[frb_type],
-                                   dim_feature=dim_feature, fm_ops=fm_ops,
-                                   width_mult=width_mult,
-                                   use_peer=use_ori, use_decoder=use_decoder,
-                                   decoder_loss_weight=decoder_loss_weight)
+        if "lightcnn" in frb_type:
+            self.frb = lightcnn.LightCNN29v2(
+                layers=lightcnn.LIGHTCNN29_LAYERS, dim_feature=dim_feature,
+                fm_ops=fm_ops, in_channels=in_channels, use_peer=use_ori)
+        else:
+            self.frb = iresnet.IResNet(
+                layers=iresnet.IRESNET_LAYERS[frb_type],
+                dim_feature=dim_feature, fm_ops=fm_ops,
+                width_mult=width_mult, use_peer=use_ori,
+                use_decoder=use_decoder,
+                decoder_loss_weight=decoder_loss_weight)
         self.osb: Optional[Unet] = None
         if use_osb:
             if "unet" not in osb_type:
                 raise ValueError("OSB type error")
-            self.osb = Unet(input_size=input_size)
+            self.osb = Unet(input_size=input_size, in_channels=in_channels)
 
         self.classification: Optional[nn.Module] = None
         if num_classes is not None:
@@ -110,13 +121,13 @@ class MSML(nn.Module):
     def forward(self, x: torch.Tensor, label: Optional[torch.Tensor] = None,
                 ori: Optional[torch.Tensor] = None, train: bool = False,
                 losses: Optional[dict] = None):
-        """x: (B, 3, 112, 112) float32; ori: the unoccluded images, same
-        shape, or None (the teacher and the decoder run only on it);
-        losses: a dict for the weighted recover loss ('rec', see
-        `IResNet.forward`).
+        """x: (B, 3, 112, 112) float32 for an iResNet FRB, (B, 1, 128, 128)
+        for LightCNN; ori: the unoccluded images, same shape, or None (the
+        teacher and the decoder run only on it); losses: a dict for the
+        weighted recover loss ('rec', see `IResNet.forward`).
 
-        train=False -> (feature (B, 512) f32, final_seg (B, 2, 112, 112)
-        f32 or None). train=True (the module in train mode, so BatchNorm
+        train=False -> (feature (B, dim_feature) f32: 512 for iResNet, 256
+        for LightCNN; final_seg (B, 2, H, W) f32 or None). train=True (the module in train mode, so BatchNorm
         uses and updates batch statistics; needs the head and `label`) ->
         (final_cls (B, num_classes) f32, final_seg, kd)."""
         if train and not (self.training and self.classification is not None

@@ -6,11 +6,12 @@ Counterpart of `msml_tpu/nn/unet.py`. Parity target
   * `_GlobalConvModule` (16-38): (k x 1 -> 1 x k) + (1 x k -> k x 1), each
     conv padded only along its long axis.
   * `Unet.forward` (189-240): stride-2 stem (stages at 56/28/14/7/4 for a
-    112 input), 5 GCMs + 5 transposed-conv decoders with skip concats
-    `(seg_k, gcm(x_k))`, and the DAP head. deconv1 has kernel 4 for a 128
-    input, 3 for 112 (`unet.py:141-148`).
-  * Returns [seg0(7), seg1(14), seg2(28), seg3(56), seg5(112, 2ch)]; seg0..3
-    are detached (the "detach link", `unet.py:225-236`), seg5 is float32.
+    112 input, 64/32/16/8/4 for 128), 5 GCMs + 5 transposed-conv decoders
+    with skip concats `(seg_k, gcm(x_k))`, and the DAP head. deconv1 has
+    kernel 4 for a 128 input, 3 for 112 (`unet.py:141-148`).
+  * Returns [seg0(7), seg1(14), seg2(28), seg3(56), seg5(112, 2ch)] (8, 16,
+    32, 64, 128 for a 128 input); seg0..3 are detached (the "detach
+    link", `unet.py:225-236`), seg5 is float32.
 """
 
 from __future__ import annotations
@@ -42,15 +43,18 @@ class GlobalConvModule(nn.Module):
 
 
 class Unet(nn.Module):
-    """`unet.py:94-240`. forward(x) -> [seg0, seg1, seg2, seg3, seg5]."""
+    """`unet.py:94-240`. forward(x) -> [seg0, seg1, seg2, seg3, seg5].
+
+    `in_channels` is the input's: 3 for RGB, 1 for the gray 128 x 128
+    recipe (JAX infers the stem's from the input)."""
 
     def __init__(self, layers: Sequence[int] = (2, 2, 2, 2),
                  num_classes: int = 2, kernel_size: int = 7, dap_k: int = 3,
-                 input_size: int = 112):
+                 input_size: int = 112, in_channels: int = 3):
         super().__init__()
         self.num_classes, self.dap_k = num_classes, dap_k
         seg_ch = num_classes * dap_k ** 2  # 18
-        self.conv1 = nn.Conv2d(3, 64, 3, 2, 1, bias=False)
+        self.conv1 = nn.Conv2d(in_channels, 64, 3, 2, 1, bias=False)
         self.bn1 = batch_norm(64)
         self.prelu = PReLU(64)
         self.layer1 = ResStage(64, 64, layers[0], 2)

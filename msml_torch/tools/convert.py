@@ -2,7 +2,9 @@
 
 The port's own copy of the exporter `msml_tpu/tools/export_torch.py` and of
 its inverse `msml_tpu/tools/import_torch.py::import_msml_checkpoint`, for
-the modules the port has: the iResNet trunk, the FMCnn operators with
+the modules the port has: the iResNet trunk, the LightCNN-29v2 trunk
+(detected by `frb.conv1.filter`, `import_torch.py:200-208`; each mfm conv
+`<name>.filter` with its bias), the FMCnn operators with
 their peer-guided parts (`conv_m` as `.conv_m.0` / `.conv_m.1`, the towers
 `conv1` / `conv2` as `.0` to `.5`), the frozen iResNet teacher (`peer` ->
 `frb.peer.*`), the recover decoder (`frb/decoder` -> `frb.decoder.*`, under
@@ -16,7 +18,9 @@ Layouts (flax -> torch; the inverse undoes each):
   conv   (kh, kw, I, O) -> (O, I, kh, kw)
   deconv (kh, kw, O, I) -> (I, O, kh, kw)
   frb.fc (H*W*C, out)   -> (out, C*H*W): the flax model flattens HWC, the
-                           reference and the port flatten C-major
+                           reference and the port flatten C-major; H = W = 7,
+                           C = 512 for iResNet, H = W = 8, C = 128 for
+                           LightCNN (`export_torch.py:222`)
   BN     scale/bias/mean/var -> weight/bias/running_mean/running_var
                                 (+ num_batches_tracked = 0)
   features BatchNorm1d  -> weight = ones (frozen at 1.0, iresnet.py:119-120;
@@ -36,7 +40,8 @@ import numpy as np
 import torch
 
 Path = Tuple[str, ...]
-FC_HW = 7  # the final 7 x 7 map at 112 input
+FC_HW = 7  # iResNet's final 7 x 7 map at 112 input
+LIGHT_FC_HW = 8  # LightCNN's final 8 x 8 map at 128 input
 
 
 def _get(tree, path: Path) -> np.ndarray:
@@ -90,6 +95,11 @@ class _Layout:
     def prelu(self, dst: str, path: Path):
         self.leaf(dst + ".weight", "params", path + ("alpha",))
 
+    def fc(self, dst: str, path: Path, hw: int):
+        """A dense over a C-major flatten of an hw x hw map."""
+        self.leaf(dst + ".weight", "params", path + ("kernel",), f"fc{hw}")
+        self.leaf(dst + ".bias", "params", path + ("bias",))
+
 
 def _stage(e: _Layout, dst: str, path: Path):
     i = 0
@@ -118,9 +128,51 @@ def _stem_and_stages(e: _Layout, dst: str, path: Path):
 
 def _iresnet(e: _Layout, dst: str, path: Path):
     _stem_and_stages(e, dst, path)
-    e.leaf(dst + ".fc.weight", "params", path + ("fc", "kernel"), "fc")
-    e.leaf(dst + ".fc.bias", "params", path + ("fc", "bias"))
+    e.fc(dst + ".fc", path + ("fc",), FC_HW)
     e.bn(dst + ".features", path + ("features",), scale=False)
+
+
+def _lightcnn(e: _Layout, dst: str, path: Path):
+    """network_29layers_v2 (`msml_tpu/tools/export_torch.py:188-223`): the
+    flax stage1 / stage2 wrap (block{i}..., group), stages 3 and 4 are
+    flat (`stage3_block{i}`, `group3`, ...); torch names block1..4,
+    group1..4."""
+
+    def mfm(d: str, p: Path):
+        e.conv(d + ".filter", p + ("filter",), bias=True)
+
+    def blocks(d: str, p: Path, flax_name):
+        i = 0
+        while e.has(p + (flax_name(i),), f"{d}.{i}."):
+            for ci in (1, 2):
+                mfm(f"{d}.{i}.conv{ci}", p + (flax_name(i), f"conv{ci}"))
+            i += 1
+
+    def group(d: str, p: Path):
+        mfm(d + ".conv_a", p + ("conv_a",))
+        mfm(d + ".conv", p + ("conv",))
+
+    mfm(dst + ".conv1", path + ("conv1",))
+    for si in (1, 2):
+        sp = path + (f"stage{si}",)
+        blocks(f"{dst}.block{si}", sp, lambda i: f"block{i}")
+        group(f"{dst}.group{si}", sp + ("group",))
+    for si in (3, 4):
+        blocks(f"{dst}.block{si}", path,
+               lambda i, si=si: f"stage{si}_block{i}")
+        group(f"{dst}.group{si}", path + (f"group{si}",))
+    e.fc(dst + ".fc", path + ("fc",), LIGHT_FC_HW)
+
+
+def _frb(e: _Layout, dst: str, path: Path, what: str):
+    """The iResNet or the LightCNN trunk at `path`, whichever is there."""
+    key = dst + ".conv1."
+    if e.has(path + ("conv1", "kernel"), key + "weight"):
+        _iresnet(e, dst, path)
+    elif e.has(path + ("conv1", "filter"), key + "filter."):
+        _lightcnn(e, dst, path)
+    else:
+        raise NotImplementedError(f"unrecognised {what} parameter layout")
 
 
 def _fm(e: _Layout, dst: str, path: Path):
@@ -170,17 +222,13 @@ def _unet(e: _Layout, dst: str, path: Path):
 
 
 def _walk(e: _Layout) -> _Layout:
-    if not e.has(("frb", "conv1", "kernel"), "frb.conv1.weight"):
-        raise NotImplementedError("only the iResNet FRB is ported so far")
-    _iresnet(e, "frb", ("frb",))
+    _frb(e, "frb", ("frb",), "FRB")
     if e.has(("frb", "decoder"), "frb.decoder."):
         _decoder(e, "frb.decoder", ("frb", "decoder"))
     for i in range(4):
         _fm(e, f"frb.fm_ops.{i}", (f"fm_op{i}",))
     if e.has(("peer",), "frb.peer."):
-        if not e.has(("peer", "conv1", "kernel"), "frb.peer.conv1.weight"):
-            raise NotImplementedError("only the iResNet peer is ported so far")
-        _iresnet(e, "frb.peer", ("peer",))
+        _frb(e, "frb.peer", ("peer",), "peer")
     if e.has(("osb",), "osb."):
         _unet(e, "osb", ("osb",))
     for name in ("weight", "bias"):
@@ -208,9 +256,10 @@ class _Emitter(_Layout):
             v = _get(self.trees[tree or "params"], path)
             if kind == "conv":  # HWIO -> OIHW; transposed (kh,kw,O,I) -> IO
                 v = np.transpose(v, (3, 2, 0, 1))
-            elif kind == "fc":
-                c, out_dim = v.shape[0] // FC_HW ** 2, v.shape[1]
-                v = np.transpose(v.reshape(FC_HW, FC_HW, c, out_dim),
+            elif kind.startswith("fc"):
+                hw = int(kind[2:])
+                c, out_dim = v.shape[0] // hw ** 2, v.shape[1]
+                v = np.transpose(v.reshape(hw, hw, c, out_dim),
                                  (3, 2, 0, 1)).reshape(out_dim, -1)
             elif kind == "ones":
                 v = np.ones_like(v)
@@ -242,9 +291,10 @@ def jax_from_state_dict(state_dict) -> Tuple[Dict, Dict]:
         v = sd[key]
         if kind == "conv":
             v = np.transpose(v, (2, 3, 1, 0))
-        elif kind == "fc":
-            out_dim, c = v.shape[0], v.shape[1] // FC_HW ** 2
-            v = np.transpose(v.reshape(out_dim, c, FC_HW, FC_HW),
+        elif kind.startswith("fc"):
+            hw = int(kind[2:])
+            out_dim, c = v.shape[0], v.shape[1] // hw ** 2
+            v = np.transpose(v.reshape(out_dim, c, hw, hw),
                              (2, 3, 1, 0)).reshape(-1, out_dim)
         _set(trees[tree], path, np.asarray(v, np.float32))
     return trees["params"], trees["batch_stats"]

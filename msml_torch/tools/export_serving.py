@@ -34,17 +34,20 @@ import os
 
 import torch
 
+from msml_torch.train.train_step import nchw_float
+
 
 class EvalForward(torch.nn.Module):
     """(B, H, W, C) float32 images -> (B, dim_feature) float32 features of
-    `model`'s eval forward. The model stays in the mode it is in."""
+    `model`'s eval forward, the images copied to NCHW strides
+    (`train_step.nchw_float`). The model stays in the mode it is in."""
 
     def __init__(self, model: torch.nn.Module):
         super().__init__()
         self.model = model
 
     def forward(self, img: torch.Tensor) -> torch.Tensor:
-        return self.model(img.permute(0, 3, 1, 2).contiguous())[0]
+        return self.model(nchw_float(img))[0]
 
 
 def export_eval_fn(model: torch.nn.Module, input_shape, batch=None,

@@ -5,15 +5,15 @@ pretrained load of `backbones/frb/iresnet.py:410-442`: overlay the
 pretrained trunk, keep the newly initialised layers; and the frozen peer
 load of `backbones/peer/arcface.py:199-237`).
 
-Sources, by extension:
-  * .npz from `tools/export_frb.py` of either package: the frb trunk only;
+Sources, by extension, for either FRB (iResNet or LightCNN-29v2):
   * .npz from `tools/export_frb.py` of either package: the frb trunk only
     (with the recover decoder, which the JAX package keeps under `frb`);
   * .pth / .pt / .tar: a reference MSML `backbone.pth`, one that
     `tools/export_torch.py` of either package wrote, or a `ckpt/<step>.pt`
-    of `msml_torch.cli.train`; a vanilla iResNet state dict (no `frb.` or
-    `osb.` key) is read as the frb trunk. Their `frb.decoder.*` keys are
-    dropped, as the JAX package's `import_msml_checkpoint` reads none.
+    of `msml_torch.cli.train`; a vanilla iResNet or LightCNN state dict
+    (no `frb.` or `osb.` key) is read as the frb trunk. Their
+    `frb.decoder.*` keys are dropped, as the JAX package's
+    `import_msml_checkpoint` reads none.
 
 `pretrained_backbone` covers the key groups the JAX package merges, frb
 (the trunk and the decoder), fm_op0..3, osb and classification: in torch
@@ -80,7 +80,7 @@ def load_source(path: str) -> Dict[str, torch.Tensor]:
 
         sd = read_state_dict(path)
         if not any(k.startswith(("frb.", "osb.")) for k in sd):
-            # vanilla iresnet .pth: treat as an frb trunk
+            # vanilla iresnet / lightcnn .pth: treat as an frb trunk
             sd = {"frb." + k: v for k, v in sd.items()}
         sd = {k: v for k, v in sd.items() if not k.startswith("frb.decoder.")}
         if FEATURES_SCALE in sd and not np.allclose(

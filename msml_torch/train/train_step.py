@@ -133,8 +133,12 @@ def make_train_step(cfg) -> Callable[..., Dict[str, torch.Tensor]]:
 
 
 def nchw_float(img: torch.Tensor) -> torch.Tensor:
-    """A host-float batch (B, H, W, C) -> contiguous float32 (B, C, H, W)."""
-    return img.permute(0, 3, 1, 2).to(torch.float32).contiguous()
+    """A host-float batch (B, H, W, C) -> float32 (B, C, H, W) with NCHW
+    strides, always a copy. For a gray batch (C = 1) the permuted view
+    already counts as contiguous, but its strides are channels_last's
+    too, and cuDNN would then run every conv after it channels_last."""
+    return img.permute(0, 3, 1, 2).to(torch.float32).clone(
+        memory_format=torch.contiguous_format)
 
 
 def make_eval_step(model: torch.nn.Module) -> Callable[[np.ndarray],
@@ -151,8 +155,8 @@ def make_eval_step(model: torch.nn.Module) -> Callable[[np.ndarray],
         model.eval()
         try:
             with torch.no_grad():
-                x = torch.as_tensor(img, device=dev).permute(0, 3, 1, 2)
-                feature, _ = model(x.contiguous())
+                feature, _ = model(nchw_float(torch.as_tensor(
+                    img, device=dev)))
         finally:
             model.train(was_training)
         return feature.float().cpu().numpy()

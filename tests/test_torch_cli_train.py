@@ -136,12 +136,33 @@ def test_verification_every_n_steps(tmp_path):
 
 
 def test_peer_teacher_is_refused(tmp_path):
-    """The peer teacher trains since the peer-KD recipe was ported; what
-    stays refused of it is the LightCNN FRB's teacher (PeerLightCNN)."""
-    with pytest.raises(NotImplementedError, match="LightCNN"):
-        run(tmp_path, "--steps", "1", frb_type="lightcnn",
-            peer_params={"use_ori": True, "use_conv": True,
-                         "mask_trans": "conv", "use_decoder": True})
+    """The refusal this test guarded is lifted: the LightCNN FRB with
+    `use_ori: true` builds its frozen teacher (PeerLightCNN: eval mode,
+    no gradient, out of the optimizer) and the CLI takes steps on gray
+    128 x 128 batches with `ori`; the teacher comes out of them bit-equal
+    to the seeded one the same config builds."""
+    from msml_torch.nn.lightcnn import PeerLightCNN
+
+    peer = {"use_ori": True, "use_conv": True, "mask_trans": "conv",
+            "use_decoder": False}
+    state, _, log = run(tmp_path, "--steps", "2", "--log-every", "1",
+                        frb_type="lightcnn", peer_params=peer)
+    teacher = state.model.frb.peer
+    assert isinstance(teacher, PeerLightCNN) and not teacher.training
+    assert state.step == 2
+    held = {id(p) for g in state.optimizer.param_groups
+            for p in g["params"]}
+    for p in teacher.parameters():
+        assert not p.requires_grad and p.grad is None and id(p) not in held
+    fresh = msml_from_config(config_init(config(tmp_path / "x", frb_type=
+                                                "lightcnn",
+                                                peer_params=peer),
+                                         make_output_dir=False),
+                             device="cpu", seed=0, head=True)
+    for k, v in fresh.frb.peer.state_dict().items():
+        assert torch.equal(teacher.state_dict()[k], v), k
+    losses = speed_losses(log)  # logged from the second step on
+    assert len(losses) == 1 and np.isfinite(float(losses[0]))
 
 
 def test_default_config_is_refused(tmp_path, monkeypatch):

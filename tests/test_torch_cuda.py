@@ -86,6 +86,38 @@ def test_augment_kernel_uint8_matches_plain(cuda, fill):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.uint8])
+def test_augment_kernel_gray_128(cuda, dtype):
+    """The LightCNN recipe's input: gray 128 x 128 (C = 1, 7 bands of 19
+    rows, the last 14), use_norm off, relight on and off, and the train
+    stage built on it."""
+    from msml_torch.kernels.augment import (augment_batch,
+                                            augment_batch_reference,
+                                            device_input_stage)
+
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    img = torch.rand((8, 128, 128, 1), generator=gen, device=cuda)
+    if dtype == torch.uint8:
+        img = (img * 256).to(torch.uint8)
+    noise = torch.randn(img.shape, generator=gen, device=cuda)
+    draws = torch.rand((8, 6), generator=gen, device=cuda)
+    for fill, relight, (lo, hi) in itertools.product(
+            ("black", "gauss"), (False, True), ((0, 1), (20, 51))):
+        kw = dict(lo=lo, hi=hi, fill=fill, relight=relight, use_norm=False)
+        out = augment_batch(img, draws, noise, **kw)
+        torch.testing.assert_close(
+            out, augment_batch_reference(img, draws, noise, **kw),
+            atol=1e-5, rtol=0)
+        assert torch.equal(out, augment_batch(img, draws, noise, **kw))
+    if dtype == torch.uint8:
+        six = torch.cat([torch.zeros_like(draws[:, :3]), draws[:, 3:]], 1)
+        torch.testing.assert_close(
+            device_input_stage(img, draws[:, 3:].contiguous(),
+                               use_norm=False),
+            augment_batch_reference(img, six, relight=True, use_norm=False),
+            atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.uint8])
 @pytest.mark.parametrize("shape", [(3, 113, 17, 3), (5, 9, 21, 1)])
 def test_augment_kernel_odd_misaligned(cuda, shape, dtype):
     """Odd H and W (copies of one element or 8 bytes, stores of one or two
@@ -113,7 +145,10 @@ def test_augment_kernel_odd_misaligned(cuda, shape, dtype):
 
 
 PRELU_SHAPES = [(64, 112, 112), (32, 56, 56), (256, 14, 14), (512, 7, 7),
-                (512, 4, 4), (5, 3, 3)]
+                (512, 4, 4), (5, 3, 3),
+                # the LightCNN recipe's (gray 128 x 128): OSB and FMs
+                (64, 64, 64), (48, 64, 64), (24, 64, 64), (96, 32, 32),
+                (192, 16, 16), (128, 8, 8)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -168,7 +203,10 @@ def test_prelu_autograd_under_autocast(cuda):
 
 
 CONV_SHAPES = [(4, 112, 112), (4, 56, 56), (4, 28, 28), (3, 13, 17),
-               (2, 5, 130)]
+               (2, 5, 130),
+               # the LightCNN recipe's sites: osb.layer1 at 64^2 and 32^2,
+               # the 128-channel FM's bottleneck convs at 8^2
+               (4, 64, 64), (4, 32, 32), (4, 8, 8)]
 
 
 def _rel(a, b):
@@ -538,3 +576,37 @@ def test_peer_recipe_step_launches_and_frozen_teacher(cuda, light):
     assert all(torch.isfinite(v).all() for m in metrics for v in m.values())
     assert metrics[-1]["kd"].item() > 0
     chip_smoke.check_teacher(state, before, "peer step")
+
+
+@pytest.mark.parametrize("use_ori", [False, True], ids=["yaml", "teacher"])
+def test_lightcnn_recipe_step_launches(cuda, use_ori):
+    """configs/lightcnn_msml.yaml's train step on the card at B = 8 with 64
+    classes and device_light: each kernel launched as the recipe's module
+    sites say (33 PReLU, 5 routed conv3x3; one input stage, two with the
+    teacher's ori), metrics finite; with use_ori the PeerLightCNN teacher
+    (no counted site) bit-unchanged and outside the optimizer."""
+    import chip_smoke
+    from msml_torch.data.synthetic import synthetic_batch
+    from msml_torch.nn.msml import msml_from_config
+    from msml_torch.train.train_step import init_train_state, make_train_step
+
+    peer = dict(chip_smoke.LIGHTCNN_MSML["peer_params"], use_ori=use_ori)
+    cfg = chip_smoke.light_config(batch_size=8, device_light=True,
+                                  peer_params=peer)
+    cfg.num_classes = 64
+    model = msml_from_config(cfg, device=cuda, head=True)
+    state = init_train_state(model, cfg, cuda)
+    before = chip_smoke.teacher_snapshot(model) if use_ori else None
+    host = synthetic_batch(8, size=128, channels=1, num_classes=64,
+                           uint8=True)
+    step = make_train_step(cfg)
+    chip_smoke.reset_launches()
+    metrics = [step(state, host, 1.0) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert chip_smoke.read_launches() == chip_smoke.per_step(
+        2, chip_smoke.LIGHT_PRELU_SITES, chip_smoke.LIGHT_CONV_SITES,
+        augment=2 if use_ori else 1)
+    assert all(torch.isfinite(v).all() for m in metrics for v in m.values())
+    if use_ori:
+        assert metrics[-1]["kd"].item() > 0
+        chip_smoke.check_teacher(state, before, "light peer step")

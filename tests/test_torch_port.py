@@ -65,6 +65,14 @@ def test_peer_recipe_modules_are_checked():
         assert os.path.join(REPO, "msml_torch", *rel) in PORT_FILES, rel
 
 
+def test_lightcnn_recipe_modules_are_checked():
+    """The LightCNN recipe's modules are among the files whose imports
+    `test_port_imports_no_jax` holds."""
+    for rel in (("nn", "lightcnn.py"), ("nn", "unet.py"), ("nn", "msml.py"),
+                ("tools", "convert.py")):
+        assert os.path.join(REPO, "msml_torch", *rel) in PORT_FILES, rel
+
+
 @pytest.fixture
 def arc18_cfg():
     from msml_torch.core.config import config_init, load_yaml

@@ -8,14 +8,20 @@ stage, each thread's 16-byte piece advancing its (tap, channel) by the
 kernel's additions; the slices' int64 partial sums add up. The replay is
 held bit for bit to `qconv_reference` (itself held to the JAX package's
 int8 ops in tests/test_torch_quantize.py), and the plan of every int8 site
-of arc18_msml is checked for what the kernel relies on.
+of arc18_msml and of the LightCNN recipe is checked for what the kernel
+relies on.
 """
+
+import os
 
 import numpy as np
 import pytest
 import torch
 
 from msml_torch.kernels import qconv
+
+LIGHT_YAML = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "configs", "lightcnn_msml.yaml")
 
 # arc18_msml's int8 sites (configs/arc18_msml.yaml, bf16): kind, input (C,
 # H, W) or (C,), output channels, geometry (kh, kw, sh, sw, ph, pw, dh, dw,
@@ -89,6 +95,72 @@ SITES = [
     ("conv", (128, 7, 7), 128, (3, 3, 1, 1, 1, 1, 1, 1, 7, 7), 2, "frb.fm_ops.3.res_block.0.conv2"),
     ("conv", (128, 7, 7), 512, (1, 1, 1, 1, 0, 0, 1, 1, 7, 7), 2, "frb.fm_ops.3.res_block.0.conv3"),
     ("linear", (25088,), 512, (1, 1, 1, 1, 0, 0, 1, 1, 1, 1), 1, "frb.fc"),
+]
+# the LightCNN-29v2 gray recipe's int8 sites (configs/lightcnn_msml.yaml,
+# bf16, 128 x 128 x 1 input; the fc in float32), in the same layout
+LIGHT_SITES = [
+    ("conv", (64, 64, 64), 64, (3, 3, 1, 1, 1, 1, 1, 1, 64, 64), 1, "osb.layer1.0.conv1"),
+    ("conv", (64, 64, 64), 64, (3, 3, 2, 2, 1, 1, 1, 1, 32, 32), 1, "osb.layer1.0.conv2"),
+    ("conv", (64, 64, 64), 64, (1, 1, 2, 2, 0, 0, 1, 1, 32, 32), 1, "osb.layer1.0.downsample.0"),
+    ("conv", (64, 32, 32), 64, (3, 3, 1, 1, 1, 1, 1, 1, 32, 32), 2, "osb.layer1.1.conv1"),
+    ("conv", (64, 32, 32), 128, (3, 3, 1, 1, 1, 1, 1, 1, 32, 32), 1, "osb.layer2.0.conv1"),
+    ("conv", (128, 32, 32), 128, (3, 3, 2, 2, 1, 1, 1, 1, 16, 16), 1, "osb.layer2.0.conv2"),
+    ("conv", (64, 32, 32), 128, (1, 1, 2, 2, 0, 0, 1, 1, 16, 16), 1, "osb.layer2.0.downsample.0"),
+    ("conv", (128, 16, 16), 128, (3, 3, 1, 1, 1, 1, 1, 1, 16, 16), 4, "osb.layer2.1.conv1"),
+    ("conv", (128, 16, 16), 256, (3, 3, 1, 1, 1, 1, 1, 1, 16, 16), 1, "osb.layer3.0.conv1"),
+    ("conv", (256, 16, 16), 256, (3, 3, 2, 2, 1, 1, 1, 1, 8, 8), 1, "osb.layer3.0.conv2"),
+    ("conv", (128, 16, 16), 256, (1, 1, 2, 2, 0, 0, 1, 1, 8, 8), 1, "osb.layer3.0.downsample.0"),
+    ("conv", (256, 8, 8), 256, (3, 3, 1, 1, 1, 1, 1, 1, 8, 8), 2, "osb.layer3.1.conv1"),
+    ("conv", (256, 8, 8), 512, (3, 3, 1, 1, 1, 1, 1, 1, 8, 8), 1, "osb.layer4.0.conv1"),
+    ("conv", (512, 8, 8), 512, (3, 3, 2, 2, 1, 1, 1, 1, 4, 4), 1, "osb.layer4.0.conv2"),
+    ("conv", (256, 8, 8), 512, (1, 1, 2, 2, 0, 0, 1, 1, 4, 4), 1, "osb.layer4.0.downsample.0"),
+    ("conv", (512, 4, 4), 512, (3, 3, 1, 1, 1, 1, 1, 1, 4, 4), 2, "osb.layer4.1.conv1"),
+    ("conv", (512, 4, 4), 8, (7, 1, 1, 1, 3, 0, 1, 1, 4, 4), 1, "osb.gcm1.conv_l1"),
+    ("conv", (512, 4, 4), 8, (1, 7, 1, 1, 0, 3, 1, 1, 4, 4), 1, "osb.gcm1.conv_r1"),
+    ("transposed", (8, 4, 4), 18, (4, 4, 1, 1, 2, 2, 2, 2, 8, 8), 1, "osb.deconv1"),
+    ("conv", (256, 8, 8), 18, (7, 1, 1, 1, 3, 0, 1, 1, 8, 8), 1, "osb.gcm2.conv_l1"),
+    ("conv", (18, 8, 8), 18, (1, 7, 1, 1, 0, 3, 1, 1, 8, 8), 1, "osb.gcm2.conv_l2"),
+    ("conv", (256, 8, 8), 18, (1, 7, 1, 1, 0, 3, 1, 1, 8, 8), 1, "osb.gcm2.conv_r1"),
+    ("conv", (18, 8, 8), 18, (7, 1, 1, 1, 3, 0, 1, 1, 8, 8), 1, "osb.gcm2.conv_r2"),
+    ("transposed", (36, 8, 8), 18, (4, 4, 1, 1, 2, 2, 2, 2, 16, 16), 1, "osb.deconv2"),
+    ("conv", (128, 16, 16), 18, (7, 1, 1, 1, 3, 0, 1, 1, 16, 16), 1, "osb.gcm3.conv_l1"),
+    ("conv", (18, 16, 16), 18, (1, 7, 1, 1, 0, 3, 1, 1, 16, 16), 1, "osb.gcm3.conv_l2"),
+    ("conv", (128, 16, 16), 18, (1, 7, 1, 1, 0, 3, 1, 1, 16, 16), 1, "osb.gcm3.conv_r1"),
+    ("conv", (18, 16, 16), 18, (7, 1, 1, 1, 3, 0, 1, 1, 16, 16), 1, "osb.gcm3.conv_r2"),
+    ("transposed", (36, 16, 16), 18, (4, 4, 1, 1, 2, 2, 2, 2, 32, 32), 1, "osb.deconv3"),
+    ("conv", (64, 32, 32), 18, (7, 1, 1, 1, 3, 0, 1, 1, 32, 32), 1, "osb.gcm4.conv_l1"),
+    ("conv", (18, 32, 32), 18, (1, 7, 1, 1, 0, 3, 1, 1, 32, 32), 1, "osb.gcm4.conv_l2"),
+    ("conv", (64, 32, 32), 18, (1, 7, 1, 1, 0, 3, 1, 1, 32, 32), 1, "osb.gcm4.conv_r1"),
+    ("conv", (18, 32, 32), 18, (7, 1, 1, 1, 3, 0, 1, 1, 32, 32), 1, "osb.gcm4.conv_r2"),
+    ("transposed", (36, 32, 32), 18, (4, 4, 1, 1, 2, 2, 2, 2, 64, 64), 1, "osb.deconv4"),
+    ("conv", (64, 64, 64), 18, (7, 1, 1, 1, 3, 0, 1, 1, 64, 64), 1, "osb.gcm5.conv_l1"),
+    ("conv", (18, 64, 64), 18, (1, 7, 1, 1, 0, 3, 1, 1, 64, 64), 1, "osb.gcm5.conv_l2"),
+    ("conv", (64, 64, 64), 18, (1, 7, 1, 1, 0, 3, 1, 1, 64, 64), 1, "osb.gcm5.conv_r1"),
+    ("conv", (18, 64, 64), 18, (7, 1, 1, 1, 3, 0, 1, 1, 64, 64), 1, "osb.gcm5.conv_r2"),
+    ("transposed", (36, 64, 64), 18, (4, 4, 1, 1, 2, 2, 2, 2, 128, 128), 1, "osb.deconv5"),
+    ("conv", (66, 64, 64), 48, (3, 3, 1, 1, 1, 1, 1, 1, 64, 64), 1, "frb.fm_ops.0.same_conv"),
+    ("conv", (24, 64, 64), 24, (3, 3, 1, 1, 1, 1, 1, 1, 64, 64), 2, "frb.fm_ops.0.res_block.0.conv2"),
+    ("conv", (48, 64, 64), 96, (3, 3, 1, 1, 1, 1, 1, 1, 64, 64), 2, "frb.block1.0.conv1.filter"),
+    ("conv", (48, 64, 64), 192, (3, 3, 1, 1, 1, 1, 1, 1, 64, 64), 1, "frb.group1.conv.filter"),
+    ("conv", (114, 32, 32), 96, (3, 3, 1, 1, 1, 1, 1, 1, 32, 32), 1, "frb.fm_ops.1.same_conv"),
+    ("conv", (96, 32, 32), 48, (1, 1, 1, 1, 0, 0, 1, 1, 32, 32), 2, "frb.fm_ops.1.res_block.0.conv1"),
+    ("conv", (48, 32, 32), 48, (3, 3, 1, 1, 1, 1, 1, 1, 32, 32), 2, "frb.fm_ops.1.res_block.0.conv2"),
+    ("conv", (96, 32, 32), 192, (3, 3, 1, 1, 1, 1, 1, 1, 32, 32), 4, "frb.block2.0.conv1.filter"),
+    ("conv", (96, 32, 32), 192, (1, 1, 1, 1, 0, 0, 1, 1, 32, 32), 1, "frb.group2.conv_a.filter"),
+    ("conv", (96, 32, 32), 384, (3, 3, 1, 1, 1, 1, 1, 1, 32, 32), 1, "frb.group2.conv.filter"),
+    ("conv", (210, 16, 16), 192, (3, 3, 1, 1, 1, 1, 1, 1, 16, 16), 1, "frb.fm_ops.2.same_conv"),
+    ("conv", (192, 16, 16), 128, (1, 1, 1, 1, 0, 0, 1, 1, 16, 16), 2, "frb.fm_ops.2.res_block.0.conv1"),
+    ("conv", (128, 16, 16), 192, (1, 1, 1, 1, 0, 0, 1, 1, 16, 16), 2, "frb.fm_ops.2.res_block.0.conv3"),
+    ("conv", (192, 16, 16), 384, (3, 3, 1, 1, 1, 1, 1, 1, 16, 16), 6, "frb.block3.0.conv1.filter"),
+    ("conv", (192, 16, 16), 384, (1, 1, 1, 1, 0, 0, 1, 1, 16, 16), 1, "frb.group3.conv_a.filter"),
+    ("conv", (192, 16, 16), 256, (3, 3, 1, 1, 1, 1, 1, 1, 16, 16), 1, "frb.group3.conv.filter"),
+    ("conv", (128, 16, 16), 256, (3, 3, 1, 1, 1, 1, 1, 1, 16, 16), 9, "frb.block4.0.conv1.filter"),
+    ("conv", (128, 16, 16), 256, (1, 1, 1, 1, 0, 0, 1, 1, 16, 16), 1, "frb.group4.conv_a.filter"),
+    ("conv", (146, 8, 8), 128, (3, 3, 1, 1, 1, 1, 1, 1, 8, 8), 1, "frb.fm_ops.3.same_conv"),
+    ("conv", (128, 8, 8), 64, (1, 1, 1, 1, 0, 0, 1, 1, 8, 8), 2, "frb.fm_ops.3.res_block.0.conv1"),
+    ("conv", (64, 8, 8), 64, (3, 3, 1, 1, 1, 1, 1, 1, 8, 8), 2, "frb.fm_ops.3.res_block.0.conv2"),
+    ("conv", (64, 8, 8), 128, (1, 1, 1, 1, 0, 0, 1, 1, 8, 8), 2, "frb.fm_ops.3.res_block.0.conv3"),
+    ("linear", (8192,), 256, (1, 1, 1, 1, 0, 0, 1, 1, 1, 1), 1, "frb.fc"),
 ]
 B_MAIN = 512  # the quantized eval forward's batch
 FC = (1, 1, 1, 1, 0, 0, 1, 1, 1, 1)
@@ -184,6 +256,18 @@ def test_plan_of_each_site(site):
     whose taps land only on input rows and columns (no hole), pixel tiles
     that cover every phase, and K slices whose pieces load each (tap,
     16 channels) of a phase exactly once."""
+    check_plan(site)
+
+
+@pytest.mark.parametrize("site", LIGHT_SITES, ids=site_id)
+def test_plan_of_each_lightcnn_site(site):
+    """The same at the LightCNN recipe's geometries: mfm convs to 2C (96,
+    192, 384, 256 channels), C_in 48, 96, 192 and 128, maps of 64^2 to
+    4^2 and the transposed convs up to 128^2."""
+    check_plan(site)
+
+
+def check_plan(site):
     kind, shape, co, geometry, _, _ = site
     cp = qconv.padded_channels(shape[0])
     kh, kw, sh, swd, ph, pw, dh, dw, ho, wo = geometry
@@ -219,6 +303,28 @@ def test_plan_of_each_site(site):
                 for ci in range(0, cp, 16)]
         assert sorted(loaded) == want
     assert (written == 1).all()
+
+
+def test_sites_are_the_lightcnn_recipe():
+    """LIGHT_SITES are the int8 sites of the LightCNN recipe's quantized
+    eval forward (`quantize_eval_model` at (128, 128, 1))."""
+    from msml_torch.core.config import config_init, load_yaml
+    from msml_torch.core.quantize import quantize_eval_model
+    from msml_torch.nn.msml import msml_from_config
+    from msml_torch.tools.qconv_ab import int8_sites_of
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        cfg = config_init(load_yaml(LIGHT_YAML), make_output_dir=False)
+        qmodel = quantize_eval_model(msml_from_config(cfg, device="cpu"),
+                                     (128, 128, 1))
+        found = int8_sites_of(qmodel, torch.zeros((1, 1, 128, 128)))
+    finally:
+        torch.set_num_threads(threads)
+    assert [(k[0], k[1], k[5], k[2], len(v), v[0][0])
+            for k, v in found.items()] == LIGHT_SITES
+    assert sum(len(v) for v in found.values()) == 93
 
 
 def test_sites_are_arc18_msml():

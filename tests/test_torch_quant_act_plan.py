@@ -20,7 +20,7 @@ import pytest
 import torch
 
 from msml_torch.kernels import qconv
-from test_torch_qconv_plan import B_MAIN, SITES
+from test_torch_qconv_plan import B_MAIN, LIGHT_SITES, SITES
 
 ESIZE = {torch.bfloat16: 2, torch.float32: 4}
 
@@ -48,6 +48,20 @@ def test_plan_of_each_site(site, dtype):
     card places, a block that fits (two an SM in bf16), rows that hold a
     block's pixels wherever they start modulo 16, and every pixel owned by
     exactly one block."""
+    check_act_plan(site, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("site", LIGHT_SITES, ids=[s[-1] for s in
+                                                  LIGHT_SITES])
+def test_plan_of_each_lightcnn_site(site, dtype):
+    """The same at the LightCNN recipe's int8 inputs (C 18 to 512 at
+    64^2 to 4^2, the fc's 8192 features)."""
+    check_act_plan(site, dtype)
+
+
+def check_act_plan(site, dtype):
     _, shape, _, _, _, name = site
     c, h, w = (shape[0], 1, 1) if len(shape) == 1 else shape
     hw, es = h * w, ESIZE[dtype]

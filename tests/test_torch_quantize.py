@@ -679,6 +679,54 @@ def test_make_quantized_eval_step(msml):
     assert not quant_sites(msml["model"])
 
 
+# ------------------ the LightCNN gray recipe (configs/lightcnn_msml.yaml)
+
+def test_lightcnn_msml_stats_equal_jax():
+    """The recipe at full width and depth, 128 x 128 x 1: the port's four
+    counts equal `quantize_fn`'s, kept where the contraction is under 64
+    (LightCNN's 5x5 conv1 on one channel, 25; the OSB's stem, 9; stage
+    1's group conv_a, 48; the narrow FMs' 1x1 bottleneck convs; gcm1's
+    8-channel convs); every mfm conv and the fc otherwise int8, and the
+    int8 features of one image within JAX's bound of JAX's."""
+    from msml_tpu.core.precision import FULL_PRECISION as JAX_F32
+    from msml_tpu.nn.msml import msml_from_config as jax_msml
+    from msml_torch.core.precision import FULL_PRECISION
+    from msml_torch.nn.msml import msml_from_config
+    from msml_torch.tools.convert import state_dict_from_jax
+    from tests.test_torch_lightcnn_msml import recipe_configs
+    from tests.test_torch_nn import random_variables
+
+    jcfg, tcfg = recipe_configs()
+    jmodel = jax_msml(jcfg, policy=JAX_F32, external_header=True)
+    x = np.random.RandomState(5).uniform(0, 1, (1, 128, 128, 1)) \
+        .astype(np.float32)
+    variables = random_variables(jmodel, x, train=False, seed=6)
+    jstats, tstats = {}, {}
+
+    def features(img):
+        return jmodel.apply(variables, img, train=False)[0]
+
+    want = np.asarray(jax.jit(jquant.quantize_fn(features,
+                                                 stats_out=jstats))(x))
+    model = msml_from_config(tcfg, policy=FULL_PRECISION, device="cpu")
+    model.load_state_dict(state_dict_from_jax(
+        jax.device_get(variables["params"]),
+        jax.device_get(variables["batch_stats"])), strict=True)
+    qmodel = quantize_model(model, nchw(x), stats_out=tstats)
+    assert tstats == jstats
+    sites = quant_sites(qmodel)
+    assert len(sites) == tstats["conv_quantized"] + tstats["dot_quantized"]
+    assert tstats["dot_quantized"] == 1 and "frb.fc" in sites
+    for kept in ("frb.conv1.filter", "osb.conv1", "frb.group1.conv_a.filter"):
+        assert kept not in sites, kept
+    for quantized in ("frb.group1.conv.filter", "frb.block4.3.conv2.filter",
+                      "frb.group4.conv_a.filter", "osb.deconv5"):
+        assert quantized in sites, quantized
+    with torch.no_grad():
+        got = qmodel(nchw(x))[0].numpy()
+    assert min_cos(got, want) >= JAX_MIN_COS
+
+
 # ------------------------------------------- the entry points, --quant int8
 
 PAIRS = 4  # the plain int8 convs sum in float64 on the CPU: ~1 s an image
