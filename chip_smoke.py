@@ -62,9 +62,10 @@ Phases:
      the sweep on the folder it wrote: `load_weight_folder` gives the
      trained model's eval features, and `msml_torch.cli.test
      --device-sweep` runs on it over a `.bin` of 40 synthetic PPM pairs;
-  7. a summary line, the JSON line of the kernels (with their times, bounds
-     and launch counts on each path: `launches` on the training CLI, for
-     the int8 kernels on phase 11's quantized forward;
+  7. a summary line (with each phase's host seconds), the JSON line of
+     the kernels (with their times, bounds and launch counts on each
+     path: `launches` on the training CLI, for the int8 kernels on phase
+     11's quantized forward;
      `launches_cli_host_sweep` from 10's BB sweep; `launches_quant`,
      `launches_serve_quant` and `launches_cli_quant_sweep` from 11), then
      the final JSON line;
@@ -90,7 +91,7 @@ Phases:
      112 JPEG q80) and a `synth_val.bin` of 200 pairs, mask recs for every
      key (so the 3D-mask branch runs) and procedural occluders, with their
      seconds and bytes. Then the loader alone at B = 128 (uint8,
-     device_light): img/s over 10 batches after the first with the spawn
+     device_light): img/s over 5 batches after the first with the spawn
      pool and with threads, the pool's start, the first two batches of
      every worker count byte-equal to one worker's, masks in {0, 1} with
      some 0s, labels in range. Then `cli.train` on the rec (`dataset:
@@ -200,6 +201,27 @@ Phases:
      geometry bit-equal to the plain kernels, the B = 512 forward's cosine
      to bf16) and a `use_ori` run with `peer_weights` = the folder's
      backbone.pth (the PeerLightCNN teacher bit-equal to it).
+  14. the baselines of `cli.test --network` and IJB-B/C (last; (d) within
+     phase 6): `.pth` files drawn from the seed with the reference's torch
+     names for cosface2018 (Sphere-20, 112 x 96), from2021 (FROM, 112 x
+     96), iresnet50_v and iresnet100_v. (a) cosface2018's, from2021's and
+     iresnet100_v's float32 eval forwards (TF32 off), as `cli.test` builds
+     them, at B = 512: PReLU and conv3x3 sites counted from the modules,
+     launches exactly sites x forwards, img/s, the card against the CPU
+     on 8 images (cosine >= 0.9999); (b) the float32 kernels at their
+     shapes against their plain versions and timed beside their bounds
+     and the library call: `conv3x3_fwd` at (512, 64, 56, 48) and (512, 64,
+     112, 96) (cuDNN f32, TF32 off and on), `prelu_fwd` at every distinct
+     PReLU shape of Sphere-20 and FROM (`F.prelu`), `augment_batch` on f32
+     (512, 112, 96, 3); (c) `cli.test --network` cosface2018, from2021
+     and iresnet50_v (the host sweep over 40 PPM pairs, 1 repeat), then
+     cosface2018 with `--device-sweep` and with `--quant int8` (its int8
+     sites bit-equal to the plain kernels, its features' cosine to
+     float32), launches exactly sites x forwards; (d) `cli.eval_ijb` on
+     phase 6's folder over an IJB root from the port's
+     `make_synthetic_eval_fixtures` (20 ids, 120 crops), without occlusion
+     and with `--lo 40 --hi 41` (10 repeats): TPR@FPR, the csv, npy and
+     (with matplotlib) pdf artifacts, 2 forwards a batch of 128.
 
 Exits non-zero, without the final line, when CUDA is missing or any check
 fails. Needs no network or PyYAML; phase 9 needs Pillow and OpenCV.
@@ -208,6 +230,7 @@ fails. Needs no network or PyYAML; phase 9 needs Pillow and OpenCV.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import json
 import math
@@ -938,7 +961,7 @@ def cosines(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def phase_model(seed: int):
-    from msml_torch.core.precision import FULL_PRECISION
+    from msml_torch.core.precision import FULL_PRECISION, no_tf32
     from msml_torch.kernels.augment import augment_batch
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
@@ -956,17 +979,10 @@ def phase_model(seed: int):
     print(f"[3 model] arc18_msml bf16 eval forward, B={B}: {ms:.2f} ms "
           f"= {B / ms * 1e3:.1f} img/s")
 
-    tf32 = (torch.backends.cudnn.allow_tf32,
-            torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
+    with no_tf32():
         model32 = build_model(seed, policy=FULL_PRECISION)
         with torch.inference_mode():
             feat32, seg32 = model32(x[:64])
-    finally:
-        torch.backends.cudnn.allow_tf32, \
-            torch.backends.cuda.matmul.allow_tf32 = tf32
     cos = cosines(feat[:64], feat32).min().item()
     if not cos >= BF16_MIN_COS:
         fail(f"bf16 vs f32 feature cosine {cos} < {BF16_MIN_COS}")
@@ -1173,7 +1189,7 @@ def train_cpu_parity(cfg, seed: int, b: int, tag: str):
     """One float32 step (TF32 off) of `cfg`'s model and step on the card
     against the CPU, from the same weights, batch and relight draws:
     metrics rtol 1e-3, the updates relative L2 error <= 1e-2."""
-    from msml_torch.core.precision import FULL_PRECISION
+    from msml_torch.core.precision import FULL_PRECISION, no_tf32
     from msml_torch.data.synthetic import synthetic_batch
     from msml_torch.nn.msml import msml_from_config
     from msml_torch.train.train_step import init_train_state, make_train_step
@@ -1183,11 +1199,7 @@ def train_cpu_parity(cfg, seed: int, b: int, tag: str):
                             num_classes=cfg.num_classes, seed=seed + 4,
                             uint8=True)
     draws = torch.rand((b, 3), generator=torch.Generator().manual_seed(seed))
-    tf32 = (torch.backends.cudnn.allow_tf32,
-            torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
+    with no_tf32():
         out = {}
         for dev in ("cuda", "cpu"):
             model = msml_from_config(cfg, policy=FULL_PRECISION, device=dev,
@@ -1201,9 +1213,6 @@ def train_cpu_parity(cfg, seed: int, b: int, tag: str):
                    for g in state.optimizer.param_groups
                    for p in g["params"]}
             out[dev] = ({k: v.item() for k, v in m.items()}, upd)
-    finally:
-        torch.backends.cudnn.allow_tf32, \
-            torch.backends.cuda.matmul.allow_tf32 = tf32
     (mg, ug), (mc, uc) = out["cuda"], out["cpu"]
     for k in mc:
         if not math.isclose(mg[k], mc[k], rel_tol=1e-3, abs_tol=1e-9):
@@ -1227,7 +1236,7 @@ def phase_cli(seed: int, smi: str, peer_sites: dict, steps: int = 20,
     peer-KD recipe's CLI with that folder's frb.npz as its teacher; ->
     (launches, img/s of its Speed lines, the sweep's launches, the server's
     launches and kernel errors, the host sweep's launches, phase 11's
-    results, phase 12's CLI launches)."""
+    results, phase 12's CLI launches, phase 14 (d)'s launches)."""
     from msml_torch.cli.train import main, parse_args
     from msml_torch.core.checkpoint import all_steps
     from msml_torch.core.config import Config
@@ -1280,8 +1289,9 @@ def phase_cli(seed: int, smi: str, peer_sites: dict, steps: int = 20,
         quant = cli_quant(seed, output, out, smi, sweep_rows)
         peer = peer_cli(seed, smi, peer_sites, os.path.join(out, "frb.npz"),
                         os.path.join(out, "pairs.bin"), out)
+        ijb = cli_ijb(seed, output, out, smi)
     return (launches, speeds, sweep_launches, serve_launches, serve_errs,
-            host_launches, quant, peer)
+            host_launches, quant, peer, ijb)
 
 
 def save_ab(seed: int, smi: str, cfg, steps: int = 30):
@@ -1491,7 +1501,6 @@ def pair_bin(path: str, seed: int, pairs: int, size: int = H) -> str:
 def host_sweep(argv) -> tuple:
     """`cli.test` (the host sweep) quietly; -> (rows, launches, seconds:
     wall, forward, metrics)."""
-    import contextlib
     import io
 
     from msml_torch.cli import serve
@@ -1547,6 +1556,7 @@ def cli_host_sweep(seed: int, folder: str, scratch: str, smi: str,
     NB, on the card; held against the port's sweep on the CPU in float32;
     `--weight backbone.pth` against the folder; -> the BB sweep's
     launches."""
+    from msml_torch.core.precision import no_tf32
     from msml_torch.core.weight_folder import weights_path
 
     big = pair_bin(os.path.join(scratch, "host.bin"), seed, HOST_PAIRS)
@@ -1591,8 +1601,6 @@ def cli_host_sweep(seed: int, folder: str, scratch: str, smi: str,
     with open(os.path.join(f32, "config.yaml"), "w") as f:
         json.dump(dict(raw, fp16=False), f)
     as_f32 = ["--weight_folder", f32, "--weight", weights_path(folder)]
-    tf32 = (torch.backends.cudnn.allow_tf32,
-            torch.backends.cuda.matmul.allow_tf32)
     card_bb = None
     # protocol BB without occlusion: the CPU's float32 forward is what
     # takes the time
@@ -1603,16 +1611,11 @@ def cli_host_sweep(seed: int, folder: str, scratch: str, smi: str,
                 ("f32", as_f32 + ["--device", "cuda"]),
                 ("cpu", as_f32 + ["--device", "cpu"])):
             feats = os.path.join(scratch, f"feats_{protocol}_{where}")
-            if where == "f32":
-                torch.backends.cudnn.allow_tf32 = False
-                torch.backends.cuda.matmul.allow_tf32 = False
-            try:
+            with (no_tf32() if where == "f32"
+                  else contextlib.nullcontext()):
                 rows, _, s = host_sweep(argv + [
                     "--bin", small, "--protocol", protocol, "--no-occ",
                     "--save-features", feats] + common)
-            finally:
-                torch.backends.cudnn.allow_tf32, \
-                    torch.backends.cuda.matmul.allow_tf32 = tf32
             got[where] = (rows, features_of(feats), s["wall"])
         ref_rows, ref_feats, cpu_s = got["cpu"]
         cos, apart = {}, {}
@@ -1700,7 +1703,11 @@ def write_mask_recs(root: str):
         w.close()
 
 
-def loader_batches(ds, use_processes: bool, batches: int = 10):
+LOADER_BATCHES = 5      # phase 9: loader-alone img/s over these batches
+
+
+def loader_batches(ds, use_processes: bool,
+                   batches: int = LOADER_BATCHES):
     """-> (the first two batches of epoch 0, seconds to the first batch,
     img/s over `batches` batches after the first)."""
     t0 = time.perf_counter()
@@ -1779,6 +1786,7 @@ def phase_data(seed: int, smi: str, synthetic_speeds, steps: int = 30,
                 use_ori=False, occluder_root=occl, num_workers=workers,
                 seed=seed, raw_uint8=True)
 
+        t_loader = time.perf_counter()
         one, _, _ = loader_batches(dataset(1), False, batches=1)
         for label, procs in (("processes", True), ("threads", False)):
             ds = dataset(nw)
@@ -1790,7 +1798,8 @@ def phase_data(seed: int, smi: str, synthetic_speeds, steps: int = 30,
                 fail(f"loader: the first two batches of {nw} {label} "
                      "differ from one worker's")
             print(f"[9 data] loader alone, {nw} {label}, B={B_TRAIN}: "
-                  f"{rate:.1f} img/s over 10 batches after the first; first "
+                  f"{rate:.1f} img/s over {LOADER_BATCHES} batches after the "
+                  "first; first "
                   f"batch after {start_s:.2f} s"
                   + (f" (~{start_s - B_TRAIN / rate:.2f} s of it starting "
                      "the spawn pool)" if procs else "")
@@ -1803,7 +1812,8 @@ def phase_data(seed: int, smi: str, synthetic_speeds, steps: int = 30,
                  f"{labels.max()}")
         print(f"[9 data] masks in {{0, 1}}, {np.mean(msk == 0):.1%} of "
               f"pixels occluded; labels {labels.min()}..{labels.max()} of "
-              f"{REC_IDS} ids")
+              f"{REC_IDS} ids; the loader runs "
+              f"{time.perf_counter() - t_loader:.1f} s host clock")
 
         out = os.path.join(tmp, "out")
 
@@ -1881,6 +1891,7 @@ def phase_data(seed: int, smi: str, synthetic_speeds, steps: int = 30,
                   else "no events file (torch.utils.tensorboard "
                   "unavailable, the writer warned)"))
         del state
+        t0 = time.perf_counter()
         state = main(parse_args(argv[2:-1] + ["--steps", str(resume_to),
                                               "--resume"]), rec_cfg())
         with open(os.path.join(output, "training.log")) as f:
@@ -1888,8 +1899,10 @@ def phase_data(seed: int, smi: str, synthetic_speeds, steps: int = 30,
         if not resumed or state.step != resume_to:
             fail(f"cli rec --resume: resumed {resumed}, step {state.step}")
         print(f"[9 data] --resume from the async checkpoint {steps} ran to "
-              f"step {state.step}; checkpoints {all_steps(output)}")
+              f"step {state.step}; checkpoints {all_steps(output)}; "
+              f"{time.perf_counter() - t0:.1f} s host clock")
         del state
+        t0 = time.perf_counter()
 
         # the rec as `dataset: custom`, whose verification decodes the
         # synth_val pairs through cv2
@@ -1911,7 +1924,8 @@ def phase_data(seed: int, smi: str, synthetic_speeds, steps: int = 30,
             fail(f"cli custom: accuracy {acc}")
         print(f"[9 data] dataset custom ({nw} workers), 4 steps, "
               f"verification on synth_val.bin ({REC_PAIRS} JPEG pairs "
-              f"decoded by cv2): Accuracy-Flip {acc[0][0]}+-{acc[0][1]}")
+              f"decoded by cv2): Accuracy-Flip {acc[0][0]}+-{acc[0][1]}; "
+              f"{time.perf_counter() - t0:.1f} s host clock")
     torch.cuda.empty_cache()
     return launches
 
@@ -2486,6 +2500,7 @@ def time_quant_sites(sites: dict, smi: str, seed: int) -> list:
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 11)
     rows = []
+    spent = {"check": 0.0, "time": 0.0}
     for key, found in sites.items():
         kind, shape, geo, dtype, _, _ = key
         name, m, _ = found[0]
@@ -2495,16 +2510,21 @@ def time_quant_sites(sites: dict, smi: str, seed: int) -> list:
             qconv.cluster_cap(0, dtype == torch.bfloat16))
         xs = [torch.randn((B,) + shape, generator=gen, device="cuda",
                           dtype=dtype) for _ in range(2)]
+        t0 = time.perf_counter()
         err = check_quant_site(m, xs[0])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
         qs = [qconv.quant_act(x, m.cp) for x in xs]
         co = m.sw.shape[0]
         act_ms = time_graph_ms([lambda x=x: qconv.quant_act(x, m.cp)
-                                for x in xs], windows=3)
+                                for x in xs], windows=1)
         conv_ms = time_graph_ms([lambda q=q: qconv.qconv_int8(
             q[0], m.wp, q[1], m.sw, m.bias, list(geo), dtype) for q in qs],
-            windows=3)
+            windows=1)
         cudnn_ms = time_graph_ms([cudnn_call(m, x.to(torch.bfloat16), gen)
-                                  for x in xs], windows=3)
+                                  for x in xs], windows=1)
+        spent["check"] += t1 - t0
+        spent["time"] += time.perf_counter() - t1
         x = xs[0]
         bound, by, act_bound, ops = quant_bounds(B, shape, geo, co,
                                                  x.element_size())
@@ -2522,7 +2542,8 @@ def time_quant_sites(sites: dict, smi: str, seed: int) -> list:
     torch.cuda.empty_cache()
     print(f"[11 quant] {smi}: each distinct int8 geometry at B = {B}: "
           "quant_act and qconv_int8 bit-equal to their plain versions on "
-          "random inputs; device time from CUDA graphs of the calls (kernel "
+          f"random inputs ({spent['check']:.1f} s host clock); device time "
+          f"from CUDA graphs of the calls ({spent['time']:.1f} s; kernel "
           "ms / bound ms / cuDNN bf16 ms of the same shape):")
     for r in rows:
         print(f"[11 quant]   {r['site']} (x{r['sites']}) {r['kind']} "
@@ -2998,7 +3019,7 @@ def phase_peer_cpu(seed: int, b: int = 4):
     """Phase 12 (b): the recipe's float32 train forward (teacher and KD on
     `ori`) on the card (TF32 off) against the CPU, same weights and
     inputs; phase 5's tolerance: relative 1e-3."""
-    from msml_torch.core.precision import FULL_PRECISION
+    from msml_torch.core.precision import FULL_PRECISION, no_tf32
     from msml_torch.nn.msml import msml_from_config
 
     cfg = peer_config()
@@ -3006,12 +3027,8 @@ def phase_peer_cpu(seed: int, b: int = 4):
     x = torch.randn((b, 3, H, W), generator=gen)
     ori = torch.randn((b, 3, H, W), generator=gen)
     label = torch.randint(0, cfg.num_classes, (b,), generator=gen)
-    tf32 = (torch.backends.cudnn.allow_tf32,
-            torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     out = {}
-    try:
+    with no_tf32():
         for dev in ("cuda", "cpu"):
             model = msml_from_config(cfg, policy=FULL_PRECISION, device=dev,
                                      seed=seed, head=True).train()
@@ -3019,9 +3036,6 @@ def phase_peer_cpu(seed: int, b: int = 4):
                 out[dev] = model(x.to(dev), label.to(dev), ori=ori.to(dev),
                                  train=True)
             del model
-    finally:
-        torch.backends.cudnn.allow_tf32, \
-            torch.backends.cuda.matmul.allow_tf32 = tf32
     errs = {name: rel_l2(g.cpu(), c) for name, g, c in zip(
         ("final_cls", "final_seg", "kd"), out["cuda"], out["cpu"])}
     if not all(e <= 1e-3 for e in errs.values()):
@@ -3347,7 +3361,7 @@ def phase_light_eval(seed: int, smi: str, model, flagship_img_s: float):
     128 x 128 images: (feature (B, 256), final_seg (B, 2, 128, 128)), its
     launches, img/s; against the float32 model on the card (TF32 off) and
     on the CPU; -> (launches of one forward, img/s)."""
-    from msml_torch.core.precision import FULL_PRECISION
+    from msml_torch.core.precision import FULL_PRECISION, no_tf32
     from msml_torch.kernels.augment import augment_batch
     from msml_torch.nn.msml import msml_from_config
 
@@ -3369,19 +3383,12 @@ def phase_light_eval(seed: int, smi: str, model, flagship_img_s: float):
                  f"{tuple(feat.shape)}, seg {tuple(seg.shape)}")
         ms = time_ms(lambda: model(x), windows=3, per_window=5)
     img_s = B / ms * 1e3
-    tf32 = (torch.backends.cudnn.allow_tf32,
-            torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
+    with no_tf32():
         model32 = msml_from_config(light_config(), policy=FULL_PRECISION,
                                    device="cuda", seed=seed)
         with torch.inference_mode():
             feat32, seg32 = model32(x[:64])
         del model32
-    finally:
-        torch.backends.cudnn.allow_tf32, \
-            torch.backends.cuda.matmul.allow_tf32 = tf32
     cos16 = cosines(feat[:64], feat32).min().item()
     model_cpu = msml_from_config(light_config(), policy=FULL_PRECISION,
                                  device="cpu", seed=seed)
@@ -3784,6 +3791,488 @@ def light_at_recipe_shapes(entries: list, light: dict):
         e["max_abs_err"] = max(e["max_abs_err"], err)
 
 
+# ------------------------------------------------------------------ phase 14
+
+BASELINE_HW = {"cosface2018": (112, 96), "from2021": (112, 96),
+               "iresnet50_v": (112, 112), "iresnet100_v": (112, 112)}
+# kernel launches per eval forward, counted from each network's modules:
+# (prelu_fwd, conv3x3_fwd at their (H, W))
+BASELINE_SITES = {
+    "cosface2018": (20, [(56, 48)] * 2),
+    "from2021": (25, [(56, 48)] * 4 + [(112, 96)]),
+    "iresnet50_v": (25, [(56, 56)] * 4 + [(112, 112)]),
+    "iresnet100_v": (50, [(56, 56)] * 4 + [(112, 112)]),
+}
+BASELINE_FORWARDS = ("cosface2018", "from2021", "iresnet100_v")  # (a)
+BASELINE_CLI = ("cosface2018", "from2021", "iresnet50_v")        # (c)
+BASELINE_CONV_SHAPES = ((64, 56, 48), (64, 112, 96))  # (C, H, W)
+BASELINE_PAIRS = 40     # the host sweeps' .bin
+BASELINE_CPU_B = 8      # card f32 vs CPU f32
+IJB_IDS = 20            # identities of the IJB fixture (2 templates of 3)
+F32_FLOPS = 67e12       # float32 FFMA peak, outside the tensor cores
+
+
+def draw_baseline_pth(network: str, seed: int, path: str) -> str:
+    """A `.pth` of `network` with the reference's torch names (the port's
+    modules carry them), every tensor drawn from `seed`: conv and linear
+    weights N(0, 1 / fan_in), biases N(0, 0.05), BN scales U(0.5, 1.5),
+    running means N(0, 0.1) and variances U(0.5, 1.5), PReLU slopes
+    U(0.1, 0.4), the frozen `features` scale 1; FROM's under "state_dict",
+    as its release keeps it."""
+    from msml_torch.nn.baselines import cosface2018
+    from msml_torch.nn.common import PReLU
+    from msml_torch.nn.from2021 import From2021
+    from msml_torch.nn.iresnet import IRESNET_LAYERS, PeerIResNet
+
+    if network == "cosface2018":
+        model = cosface2018()
+    elif network == "from2021":
+        model = From2021()
+    else:
+        model = PeerIResNet(IRESNET_LAYERS[network[:-2]])
+    gen = torch.Generator().manual_seed(seed)
+
+    def uniform(t, lo, hi):
+        return torch.rand(t.shape, generator=gen) * (hi - lo) + lo
+
+    def normal(t, std):
+        return torch.randn(t.shape, generator=gen) * std
+
+    sd = model.state_dict()
+    for name, m in model.named_modules():
+        p = name + "." if name else ""
+        if isinstance(m, PReLU):
+            sd[p + "weight"] = uniform(m.weight, 0.1, 0.4)
+        elif isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+            sd[p + "weight"] = uniform(m.weight, 0.5, 1.5)
+            sd[p + "bias"] = normal(m.bias, 0.05)
+            sd[p + "running_mean"] = normal(m.running_mean, 0.1)
+            sd[p + "running_var"] = uniform(m.running_var, 0.5, 1.5)
+        elif isinstance(m, (torch.nn.Conv2d, torch.nn.Linear)):
+            sd[p + "weight"] = normal(m.weight, m.weight[0].numel() ** -0.5)
+            if m.bias is not None:
+                sd[p + "bias"] = normal(m.bias, 0.05)
+    if "features.weight" in sd:
+        sd["features.weight"] = torch.ones_like(sd["features.weight"])
+    torch.save({"state_dict": sd} if network == "from2021" else sd, path)
+    return path
+
+
+def build_baseline(network: str, pth: str, device: str):
+    """A baseline as `cli.test` makes it (`_build_baseline`): -> (cfg,
+    model)."""
+    from msml_torch.cli import test as cli_test
+
+    return cli_test._build_baseline(argparse.Namespace(
+        network=network, weight=pth, quant=""), torch.device(device))
+
+
+def baseline_calls(model, hw) -> tuple:
+    """(PReLU calls, routed conv3x3 calls' (H, W), sorted) in one eval
+    forward of `model` on a zero batch of 2 at `hw`."""
+    from msml_torch.nn.common import routed_conv_sites
+
+    routed = set(routed_conv_sites(model))
+    convs = []
+    hooks = [m.register_forward_pre_hook(
+        lambda _, a: convs.append(tuple(a[0].shape[2:])))
+        for n, m in model.named_modules() if n in routed]
+    try:
+        prelus = prelu_shapes(model, torch.zeros((2, 3) + hw, device="cuda"))
+    finally:
+        for h in hooks:
+            h.remove()
+    return len(prelus), sorted(convs)
+
+
+def baseline_launches(network: str, forwards: int, **extra) -> dict:
+    prelu, convs = BASELINE_SITES[network]
+    return expect(prelu_fwd=forwards * prelu,
+                  conv3x3_fwd=forwards * len(convs), **extra)
+
+
+def phase_baseline_forwards(seed: int, smi: str, pths: dict) -> dict:
+    """Phase 14 (a): each baseline's eval forward as `cli.test` builds it
+    (float32, TF32 off) at B = 512: sites counted from its modules, launches
+    exactly sites x forwards, img/s, and the card against the CPU on
+    BASELINE_CPU_B images; -> {network: results}."""
+    from msml_torch.core.precision import no_tf32
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 40)
+    out = {}
+    for network in BASELINE_FORWARDS:
+        hw = BASELINE_HW[network]
+        _, model = build_baseline(network, pths[network], "cuda")
+        sites = baseline_calls(model, hw)
+        if sites != BASELINE_SITES[network]:
+            fail(f"baseline {network}: sites (PReLU, conv3x3) {sites}, "
+                 f"expected {BASELINE_SITES[network]}")
+        x = torch.rand((B, 3) + hw, generator=gen, device="cuda") * 2 - 1
+        with no_tf32(), torch.inference_mode():
+            reset_launches()
+            feat = model(x)[0]
+            torch.cuda.synchronize()
+            once = read_launches()
+            reset_launches()
+            ms = time_ms(lambda: model(x), windows=3, per_window=2)
+            timed = read_launches()
+        if (once != baseline_launches(network, 1)
+                or timed != baseline_launches(network, 3 + 3 * 2)
+                or feat.shape != (B, 512) or not torch.isfinite(feat).all()):
+            fail(f"baseline {network}: launches {once} / {timed} over 9 "
+                 f"forwards, feature {tuple(feat.shape)}")
+        _, model_cpu = build_baseline(network, pths[network], "cpu")
+        with torch.inference_mode():
+            feat_cpu = model_cpu(x[:BASELINE_CPU_B].cpu())[0]
+        cos = cosines(feat[:BASELINE_CPU_B], feat_cpu).min().item()
+        if not cos >= CPU_MIN_COS:
+            fail(f"baseline {network}: card f32 vs CPU f32 feature cosine "
+                 f"{cos} < {CPU_MIN_COS}")
+        out[network] = {"img_s": B / ms * 1e3, "ms": ms, "launches": once,
+                        "cpu_cos_min": cos}
+        print(f"[14a baselines] {smi}: {network} ({hw[0]} x {hw[1]}) f32 "
+              f"eval forward, TF32 off, B={B}: {ms:.2f} ms = "
+              f"{B / ms * 1e3:.1f} img/s; sites counted from the modules "
+              f"{sites[0]} PReLU, {len(sites[1])} conv3x3 at {sites[1]}; "
+              f"launches {once} per forward, exactly sites x 9 over the "
+              f"timed forwards; card vs CPU f32, {BASELINE_CPU_B} images: "
+              f"min cosine {cos:.8f} (>= {CPU_MIN_COS})")
+        del model, model_cpu, x, feat
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_baseline_kernels(seed: int, smi: str, pths: dict) -> dict:
+    """Phase 14 (b): the float32 kernels at the shapes the baselines give
+    them at B = 512, against their plain versions, timed beside their
+    bounds and the library call: `conv3x3_fwd` at (B, 64, 56, 48) and
+    (B, 64, 112, 96) beside cuDNN f32 (TF32 off; on, too, for reference);
+    `prelu_fwd` at every distinct PReLU shape of Sphere-20 and FROM beside
+    `F.prelu`; `augment_batch` on f32 (B, 112, 96, 3)."""
+    import torch.nn.functional as F
+
+    from msml_torch.core.precision import no_tf32
+    from msml_torch.kernels.augment import (augment_batch,
+                                            augment_batch_reference)
+    from msml_torch.kernels.conv3x3 import conv3x3_fwd, conv3x3_reference
+    from msml_torch.kernels.prelu import prelu_fwd, prelu_reference
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 41)
+    res = {"conv": {}, "prelu": {}, "errs": {}}
+    tol = CONV_TOL[torch.float32][0]
+    err = 0.0
+    for c, h, w in BASELINE_CONV_SHAPES:
+        x = torch.randn((B, c, h, w), generator=gen, device="cuda")
+        wt = torch.randn((c, c, 3, 3), generator=gen, device="cuda") / 24
+        y = conv3x3_fwd(x, wt)
+        with no_tf32():
+            ref = conv3x3_reference(x, wt)
+        rel = rel_l2(y, ref)
+        if not (rel <= tol and torch.equal(y, conv3x3_fwd(x, wt))):
+            fail(f"conv3x3 f32 {(B, c, h, w)}: relative L2 error {rel} > "
+                 f"{tol}, or two runs differ")
+        err = max(err, (y - ref).abs().max().item())
+        del y, ref
+        flops = 2 * x.numel() * 9 * c
+        nbytes = 2 * x.numel() * 4
+        bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
+        by = ("bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS
+              else "operations")
+        with no_tf32():
+            ms = time_ms(lambda: conv3x3_fwd(x, wt), windows=3, per_window=3)
+            plain_ms = time_ms(lambda: conv3x3_reference(x, wt), windows=1,
+                               per_window=2)
+            lib_ms = time_ms(lambda: F.conv2d(x, wt, padding=1), windows=3,
+                             per_window=3)
+        tf32_ms = time_ms(lambda: F.conv2d(x, wt, padding=1), windows=3,
+                          per_window=3)
+        res["conv"][f"{h}x{w}"] = {
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "library_tf32_ms": tf32_ms, "bound_ms": bound_ms, "bound_by": by,
+            "shape": [B, c, h, w], "rel_l2": rel}
+        print(f"[14b baselines conv3x3] {smi}: f32 forward at "
+              f"{(B, c, h, w)}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"cuDNN f32 (TF32 off) {lib_ms:.4f} ms, cuDNN TF32 "
+              f"{tf32_ms:.4f} ms; bound {bound_ms:.4f} ms ({by}; "
+              f"{flops / 1e9:.1f} GFLOP at {F32_FLOPS / 1e12:.0f} TFLOP/s, "
+              f"{nbytes / 1e6:.1f} MB) = {bound_ms / ms:.1%} of it; relative "
+              f"L2 error to the plain version {rel:.2e} (<= {tol}), two runs "
+              "bit-equal")
+        del x
+        torch.cuda.empty_cache()
+    res["errs"]["conv3x3_fwd"] = err
+
+    shapes = set()
+    for network in ("cosface2018", "from2021"):
+        _, model = build_baseline(network, pths[network], "cuda")
+        shapes |= set(prelu_shapes(model, torch.zeros(
+            (2, 3) + BASELINE_HW[network], device="cuda")))
+        del model
+    shapes = sorted(shapes, key=lambda s: -s[0] * s[1] * s[2])
+    err = 0.0
+    for c, h, w in shapes:
+        x = torch.randn((B, c, h, w), generator=gen, device="cuda")
+        x[torch.rand(x.shape, generator=gen, device="cuda") < 0.05] = 0
+        a = torch.rand((c,), generator=gen, device="cuda") * 0.5
+        if not torch.equal(prelu_fwd(x, a), prelu_reference(x, a)):
+            fail(f"prelu_fwd f32 {(B, c, h, w)}: not equal to the plain "
+                 "version")
+        del x
+    for c, h, w in (s for s in shapes if s[0] == 64):
+        x = torch.randn((B, c, h, w), generator=gen, device="cuda")
+        a = torch.rand((c,), generator=gen, device="cuda") * 0.5
+        bound_ms = 2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3
+        ms = time_ms(lambda: prelu_fwd(x, a), windows=3, per_window=10)
+        plain_ms = time_ms(lambda: prelu_reference(x, a), windows=3,
+                           per_window=3)
+        lib_ms = time_ms(lambda: F.prelu(x, a), windows=3, per_window=10)
+        res["prelu"][f"{h}x{w}"] = {
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "shape": [B, c, h, w]}
+        print(f"[14b baselines prelu] {smi}: f32 prelu_fwd at "
+              f"{(B, c, h, w)}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"F.prelu {lib_ms:.4f} ms, bound {bound_ms:.4f} ms = "
+              f"{bound_ms / ms:.1%} of the memory rate")
+        del x
+    print(f"[14b baselines prelu] {len(shapes)} distinct (C, H, W) of "
+          f"Sphere-20 and FROM {shapes} at B={B}, f32: y exactly equal to "
+          "the plain version")
+    res["errs"]["prelu_fwd"] = 0.0
+
+    h, w = BASELINE_HW["cosface2018"]
+    imgs = [torch.rand((B, h, w, 3), generator=gen, device="cuda")
+            for _ in range(3)]
+    draws = torch.rand((B, 6), generator=gen, device="cuda")
+    noise = torch.randn(imgs[0].shape, generator=gen, device="cuda")
+    err = 0.0
+    for fill, relight, (lo, hi) in itertools.product(
+            ("black", "gauss"), (True, False), ((0, 1), (40, 41))):
+        kw = dict(lo=lo, hi=hi, fill=fill, relight=relight)
+        e = (augment_batch(imgs[0], draws, noise, **kw)
+             - augment_batch_reference(imgs[0], draws, noise, **kw)
+             ).abs().max().item()
+        if not e <= KERNEL_TOL:
+            fail(f"augment f32 {(B, h, w, 3)}: max abs diff {e} at {kw}")
+        err = max(err, e)
+    kw = dict(MAIN_PATH)
+    check_bit_equal(lambda: augment_batch(imgs[0], draws, **kw),
+                    f"f32 {(B, h, w, 3)}")
+    moved = augment_bytes(imgs[0], draws, kw)
+    ms = time_graph_ms([lambda x=x: augment_batch(x, draws, **kw)
+                        for x in imgs])
+    plain_ms = time_ms(lambda: augment_batch_reference(imgs[0], draws, **kw))
+    bound_ms = moved / HBM_BYTES_PER_S * 1e3
+    res["augment"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": "bytes", "shape": [B, h, w, 3]}
+    res["errs"]["augment_batch"] = err
+    print(f"[14b baselines augment] {smi}: augment_batch f32 {(B, h, w, 3)} "
+          f"(the baselines' device sweep), 8 option sets: max abs diff "
+          f"{err} (<= {KERNEL_TOL}), two runs bit-equal; the sweep's path "
+          f"{ms:.4f} ms (plain {plain_ms:.4f} ms), {moved / 1e6:.1f} MB "
+          f"moved, bound {bound_ms:.4f} ms = {bound_ms / ms:.1%} of the "
+          "memory rate")
+    del imgs, noise
+    torch.cuda.empty_cache()
+    return res
+
+
+def baseline_cli(seed: int, smi: str, pths: dict, scratch: str) -> dict:
+    """Phase 14 (c): `cli.test --network` on the card: the host sweep (fill
+    black, 1 repeat, BASELINE_PAIRS pairs) of each of BASELINE_CLI, then
+    on cosface2018 `--device-sweep` and `--quant int8` (its int8 sites
+    bit-equal to the plain kernels, its features' cosine to float32);
+    -> launches by path."""
+    from msml_torch.cli import test as cli_test
+    from msml_torch.core.precision import no_tf32
+    from msml_torch.core.quantize import quant_sites, quantize_eval_model
+    from msml_torch.tools.qconv_ab import int8_sites_of
+
+    bin_path = pair_bin(os.path.join(scratch, "baselines.bin"), seed,
+                        BASELINE_PAIRS)
+    common = ["--bin", bin_path, "--device", "cuda", "--fill_type", "black",
+              "--repeats", "1"]
+    forwards = 2 * 10 * math.ceil(2 * BASELINE_PAIRS / HOST_BATCH)
+    launches = {}
+    for network in BASELINE_CLI:
+        rows, got, s = host_sweep(["--network", network, "--weight",
+                                   pths[network]] + common)
+        want = baseline_launches(network, forwards)
+        if got != want or len(rows) != 10 or not all(
+                math.isfinite(r["avg_acc"]) for r in rows):
+            fail(f"cli.test --network {network}: {len(rows)} rows, "
+                 f"launches {got}, expected {want}")
+        launches[f"cli_{network}"] = got
+        print(f"[14c baselines] {smi}: cli.test --network {network} (host "
+              f"sweep, {BASELINE_PAIRS} pairs, 1 repeat): {s['wall']:.2f} s "
+              f"wall, forward {s['forward']:.2f} s ({forwards} calls); "
+              f"avg_acc " + ", ".join(f"{r['lo']}%: {r['avg_acc']:.4f}"
+                                      for r in rows)
+              + f"; launches {got}")
+
+    net = ["--network", "cosface2018", "--weight", pths["cosface2018"]]
+    rows, got, s = host_sweep(net + ["--device-sweep"] + common)
+    batches = (1 + 9 * 10) * 2  # 10 repeats at 9 ratios, 2 flips
+    want = baseline_launches("cosface2018", batches, augment_batch=batches)
+    if got != want or len(rows) != 10:
+        fail(f"cli.test --network cosface2018 --device-sweep: {len(rows)} "
+             f"rows, launches {got}, expected {want}")
+    launches["cli_cosface2018_device_sweep"] = got
+    print(f"[14c baselines] {smi}: cli.test --network cosface2018 "
+          f"--device-sweep (augment at (80, 112, 96, 3) f32): "
+          f"{s['wall']:.2f} s wall; avg_acc " + ", ".join(
+              f"{r['lo']}%: {r['avg_acc']:.4f}" for r in rows)
+          + f"; launches {got}")
+
+    _, model = build_baseline("cosface2018", pths["cosface2018"], "cuda")
+    qmodel = quantize_eval_model(model, (112, 96, 3))
+    n_sites = len(quant_sites(qmodel))
+    gen = torch.Generator(device="cuda").manual_seed(seed + 42)
+    x = torch.rand((B, 3, 112, 96), generator=gen, device="cuda") * 2 - 1
+    sites = int8_sites_of(qmodel, x[:QUANT_CHECK_B])
+    err = max(check_quant_site(f[0][1], f[0][2]) for f in sites.values())
+    with no_tf32(), torch.inference_mode():
+        want_f = model(x)[0]
+        reset_launches()
+        got_f = qmodel(x)[0]
+        torch.cuda.synchronize()
+        once = read_launches()
+    per_image = cosines(got_f, want_f)
+    want = expect(prelu_fwd=20, quant_act=n_sites, qconv_int8=n_sites)
+    if (n_sites != 20 or once != want or not torch.isfinite(got_f).all()
+            or not per_image.mean().item() >= QUANT_MEAN_COS
+            or not per_image.min().item() >= QUANT_FLOOR_COS):
+        fail(f"cosface2018 int8: {n_sites} sites (expected 20), launches "
+             f"{once} (expected {want}), feature cosine to float32 mean "
+             f"{per_image.mean().item()} (>= {QUANT_MEAN_COS}), min "
+             f"{per_image.min().item()} (>= {QUANT_FLOOR_COS})")
+    rows, got, s = host_sweep(net + ["--quant", "int8"] + common)
+    # and one float forward: the quantizer's trace
+    want = baseline_launches("cosface2018", 1,
+                             quant_act=forwards * n_sites,
+                             qconv_int8=forwards * n_sites)
+    want["prelu_fwd"] += forwards * 20
+    if got != want or len(rows) != 10:
+        fail(f"cli.test --network cosface2018 --quant int8: {len(rows)} "
+             f"rows, launches {got}, expected {want}")
+    launches["cli_cosface2018_quant"] = got
+    print(f"[14c baselines] {smi}: cosface2018 --quant int8: {n_sites} int8 "
+          f"sites (19 of its 20 convs and the fc; the 3 -> 64 stem conv, "
+          f"contraction 27, stays float32), {len(sites)} distinct "
+          f"geometries, quant_act and qconv_int8 bit-equal to their plain "
+          f"versions at each (f32, B = {QUANT_CHECK_B}, max abs diff {err}); "
+          f"B = {B} forward against float32 (TF32 off): feature cosine mean "
+          f"{per_image.mean().item():.6f} (>= {QUANT_MEAN_COS}), min "
+          f"{per_image.min().item():.6f} (>= {QUANT_FLOOR_COS}); "
+          f"launches {once} per forward; cli.test --quant int8 host sweep "
+          f"{s['wall']:.2f} s wall, avg_acc " + ", ".join(
+              f"{r['lo']}%: {r['avg_acc']:.4f}" for r in rows)
+          + f"; launches {got}")
+    del model, qmodel, x
+    torch.cuda.empty_cache()
+    return launches
+
+
+def cli_ijb(seed: int, folder: str, scratch: str, smi: str) -> dict:
+    """Phase 14 (d), on phase 6's folder: `cli.eval_ijb` over an IJB root
+    that the port's fixture tool writes (IJB_IDS identities, 2 templates of
+    3 images each), without occlusion and with `--lo 40 --hi 41` (10
+    repeats): TPR@FPR, the artifacts, launches per batch (the image and
+    its flip); -> launches by run."""
+    import io
+
+    from msml_torch.cli import eval_ijb
+    from msml_torch.tools import make_synthetic_eval_fixtures
+
+    t0 = time.perf_counter()
+    root = os.path.join(scratch, "ijb_fixture")
+    with contextlib.redirect_stdout(io.StringIO()):
+        make_synthetic_eval_fixtures.main(
+            ["--out", root, "--ids", str(IJB_IDS), "--seed", str(seed)])
+    images = IJB_IDS * 2 * 3
+    print(f"[14d ijb] the port's make_synthetic_eval_fixtures: {images} "
+          f"IJB crops ({IJB_IDS} ids, 2 templates of 3) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    try:
+        import matplotlib  # noqa: F401
+        has_pdf = True
+    except ImportError:
+        has_pdf = False
+    launches = {}
+    for tag, occ, repeats in (("plain", [], 1),
+                              ("occ", ["--lo", "40", "--hi", "41"], 10)):
+        art = os.path.join(scratch, f"ijb_{tag}")
+        reset_launches()
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            table = eval_ijb.main(eval_ijb.parse_args(
+                ["--weight_folder", folder, "--ijb-root",
+                 os.path.join(root, "ijb"), "--device", "cuda",
+                 "--artifact-dir", art] + occ))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = read_launches()
+        forwards = repeats * 2 * math.ceil(images / 128)
+        want = expect(prelu_fwd=forwards * PRELU_SITES,
+                      conv3x3_fwd=forwards * CONV_SITES)
+        made = sorted(os.listdir(art)) if os.path.isdir(art) else []
+        need = ["ijbc_scores.npy", "ijbc_tpr_fpr.csv"] + (
+            ["ijbc.pdf"] if has_pdf else [])
+        scores = (np.load(os.path.join(art, "ijbc_scores.npy"))
+                  if "ijbc_scores.npy" in made else np.zeros(0))
+        if (got != want or not set(need) <= set(made)
+                or not all(0 <= v <= 1 for v in table.values())
+                or not np.isfinite(scores).all() or scores.size == 0):
+            fail(f"cli.eval_ijb {tag}: launches {got} (expected {want}), "
+                 f"artifacts {made} (need {need}), table {table}")
+        launches[f"cli_eval_ijb_{tag}"] = got
+        print(f"[14d ijb] {smi}: cli.eval_ijb on phase 6's folder (bf16), "
+              f"{images} crops, {len(scores)} template pairs, {repeats} "
+              f"repeat(s){' of --lo 40 --hi 41' if occ else ''}: "
+              f"{seconds:.1f} s host clock; TPR@FPR " + ", ".join(
+                  f"{k:g}: {v * 100:.2f}%" for k, v in table.items())
+              + f"; artifacts {made}"
+              + ("" if has_pdf else " (no matplotlib: no pdf)")
+              + f"; launches {got} = {forwards} forwards (2 a batch of "
+              f"128) x sites")
+    return launches
+
+
+def phase_baselines(seed: int, smi: str) -> tuple:
+    """Phase 14 (a) to (c): -> (launches by path, kernel results)."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as scratch:
+        pths = {n: draw_baseline_pth(n, seed + 43 + i,
+                                     os.path.join(scratch, f"{n}.pth"))
+                for i, n in enumerate(BASELINE_HW)}
+        forwards = phase_baseline_forwards(seed, smi, pths)
+        kernels = phase_baseline_kernels(seed, smi, pths)
+        launches = baseline_cli(seed, smi, pths, scratch)
+    launches.update({f"baseline_{n}": r["launches"]
+                     for n, r in forwards.items()})
+    kernels["img_s"] = {n: r["img_s"] for n, r in forwards.items()}
+    print(f"[14 baselines] {smi}: phase 14 (a-c) "
+          f"{time.perf_counter() - t_phase:.1f} s host clock")
+    return launches, kernels
+
+
+def baselines_at_their_shapes(entries: list, res: dict):
+    """Phase 14 (b)'s results on the kernels line: each kernel's f32 times
+    at the baselines' shapes under "baselines", its error folded into
+    max_abs_err."""
+    for e in entries:
+        name = e["name"]
+        if name == "augment_batch":
+            e["baselines"] = res["augment"]
+        elif name == "prelu_fwd":
+            e["baselines"] = {"sites": res["prelu"], "dtype": "float32"}
+        elif name == "conv3x3_fwd":
+            e["baselines"] = {"sites": res["conv"], "dtype": "float32"}
+        else:
+            continue
+        e["max_abs_err"] = max(e["max_abs_err"], res["errs"][name])
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -3792,30 +4281,44 @@ def main(argv=None):
         fail("torch.cuda.is_available() is false")
 
     t_run = time.perf_counter()
-    smi = phase_device()
-    phase_build()
-    augment_entry = phase_kernel(args.seed)
-    uint8 = phase_kernel_uint8(args.seed)
-    prelu_entries = phase_kernel_prelu(args.seed)
-    conv_entries = phase_kernel_conv(args.seed)
-    model, eval_img_s = phase_model(args.seed)
-    sweep_launches = phase_sweep(args.seed, model)
-    quant_random_init(args.seed, smi, model)
+    clock = {}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a)
+        finally:
+            clock[name] = clock.get(name, 0.0) + time.perf_counter() - t0
+
+    smi = timed("1", phase_device)
+    timed("1", phase_build)
+    augment_entry = timed("2", phase_kernel, args.seed)
+    uint8 = timed("2", phase_kernel_uint8, args.seed)
+    prelu_entries = timed("2", phase_kernel_prelu, args.seed)
+    conv_entries = timed("2", phase_kernel_conv, args.seed)
+    model, eval_img_s = timed("3", phase_model, args.seed)
+    sweep_launches = timed("4", phase_sweep, args.seed, model)
+    timed("11", quant_random_init, args.seed, smi, model)
     del model
-    train_launches, train_img_s = phase_train(args.seed)
-    phase_train_cpu_parity(args.seed)
-    peer_sites, peer_launches, peer_img_s = phase_peer_train(args.seed, smi)
-    phase_peer_cpu(args.seed)
-    peer_launches["peer_eval"] = phase_peer_eval(args.seed, smi, peer_sites,
-                                                 eval_img_s)
+    train_launches, train_img_s = timed("5", phase_train, args.seed)
+    timed("5", phase_train_cpu_parity, args.seed)
+    peer_sites, peer_launches, peer_img_s = timed(
+        "12", phase_peer_train, args.seed, smi)
+    timed("12", phase_peer_cpu, args.seed)
+    peer_launches["peer_eval"] = timed(
+        "12", phase_peer_eval, args.seed, smi, peer_sites, eval_img_s)
     (cli_launches, cli_speeds, cli_sweep_launches, serve_launches,
-     serve_errs, host_launches, quant, peer_cli_launches) = phase_cli(
-        args.seed, smi, peer_sites)
+     serve_errs, host_launches, quant, peer_cli_launches,
+     ijb_launches) = timed("6, 8, 10, 11, 12d, 14d", phase_cli, args.seed,
+                           smi, peer_sites)
     peer_launches.update(peer_cli_launches)
     quant_entries, quant_launches, quant_sweep_launches, quant_serve = quant
-    rec_launches = phase_data(args.seed, smi, cli_speeds)
-    light_launches, light, light_eval_img_s, light_train_img_s = \
-        phase_light(args.seed, smi, eval_img_s)
+    rec_launches = timed("9", phase_data, args.seed, smi, cli_speeds)
+    light_launches, light, light_eval_img_s, light_train_img_s = timed(
+        "13", phase_light, args.seed, smi, eval_img_s)
+    baseline_path_launches, baselines = timed("14a-c", phase_baselines,
+                                          args.seed, smi)
+    baseline_path_launches.update(ijb_launches)
 
     # this slice's path is the training CLI: its launches; the uint8 input
     # stage's times at B = 128, and the eval and train-step paths' launches
@@ -3844,9 +4347,12 @@ def main(argv=None):
             e["launches_" + path] = counts[e["name"]]
         for path, counts in light_launches.items():
             e["launches_" + path] = counts[e["name"]]
+        for path, counts in baseline_path_launches.items():
+            e["launches_" + path] = counts[e["name"]]
         e["max_abs_err"] = max(e["max_abs_err"],
                                serve_errs.get(e["name"], 0.0))
     light_at_recipe_shapes(entries, light)
+    baselines_at_their_shapes(entries, baselines)
     img_s = quant_entries[0]["img_s"]
     print(f"[7 summary] {smi}: the run in "
           f"{time.perf_counter() - t_run:.1f} s host clock; CLI "
@@ -3858,9 +4364,14 @@ def main(argv=None):
           f"train step {peer_img_s:.1f} img/s bf16 at B={PEER_B}; the "
           f"LightCNN recipe's train step {light_train_img_s:.1f} img/s bf16 "
           f"at B={LIGHT_B}, its eval forward {light_eval_img_s:.1f} img/s at "
-          f"B={B}; "
+          f"B={B}; the baselines' f32 eval forwards "
+          + ", ".join(f"{n} {v:.1f} img/s"
+                      for n, v in baselines["img_s"].items())
+          + f" at B={B}; "
           + "; ".join(f"{e['name']} {e['ms']:.4f} ms (bound "
                       f"{e['bound_ms']:.4f} ms)" for e in entries))
+    print(f"[7 summary] {smi}: host seconds by phase "
+          + ", ".join(f"{k}: {v:.1f}" for k, v in clock.items()))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

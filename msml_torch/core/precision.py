@@ -42,3 +42,19 @@ def policy_from_config(fp16: bool) -> Policy:
 def f32_region(device_type: str):
     """Leave autocast: the enclosed ops run in the dtype of their inputs."""
     return torch.autocast(device_type, enabled=False)
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """float32 convolutions and matmuls in float32 inside: cuDNN's and
+    cuBLAS's TF32 off (cuDNN's is on by default), restored on exit. The
+    JAX package's FULL_PRECISION computes in float32."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved

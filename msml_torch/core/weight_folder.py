@@ -49,6 +49,14 @@ def read_state_dict(path: str) -> dict:
     return sd
 
 
+def folder_config(weight_folder: str):
+    """The folder's `config.yaml`, derived (`config_init`) without making
+    an output folder."""
+    cfg = load_yaml(os.path.join(weight_folder, "config.yaml"))
+    cfg.out_folder = os.path.dirname(weight_folder.rstrip("/")) or "out"
+    return config_init(cfg, make_output_dir=False)
+
+
 def load_weight_folder(weight_folder: str, device="cuda", weight=None):
     """-> (cfg, model) in eval mode, with the weights of `weights_path`:
     the `model` state dict of the latest training checkpoint, or else
@@ -61,10 +69,8 @@ def load_weight_folder(weight_folder: str, device="cuda", weight=None):
     compute). The classification head is dropped: eval never uses it
     (cli/test.py:60-72)."""
     dev = resolve_device(device)
-    cfg = load_yaml(os.path.join(weight_folder, "config.yaml"))
+    cfg = folder_config(weight_folder)
     path = weight or weights_path(weight_folder)
-    cfg.out_folder = os.path.dirname(weight_folder.rstrip("/")) or "out"
-    config_init(cfg, make_output_dir=False)
     model = msml_from_config(cfg, device=dev)
     sd = {k: v for k, v in read_state_dict(path).items()
           if not k.startswith("classification.")}

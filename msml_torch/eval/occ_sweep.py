@@ -2,7 +2,8 @@
 metrics, ROC accuracy and TAR@FAR.
 
 The port's own copy of `msml_tpu/eval/occ_sweep.py`, with its own ROC
-curve in place of `sklearn.metrics.roc_curve`. Parity target
+curve (`eval/verification.py::roc_curve`) in place of
+`sklearn.metrics.roc_curve`. Parity target
 `eval/qeval_mxnet.py:285-591`:
   * lo in {0, 10, ..., 90}, hi = lo + 1; `RandomBlock(lo, hi, fill_type)`
     after CenterCrop, on both images of a pair (protocol BB) or on the
@@ -26,27 +27,9 @@ from typing import Callable, List, Sequence
 import numpy as np
 
 from msml_torch.eval import verification as ver
-from msml_torch.eval.verification import l2_normalize_np
+from msml_torch.eval.verification import l2_normalize_np, roc_curve
 
 FAR_VALS = (1e-1, 1e-2, 1e-3, 1e-4, 1e-5)
-
-
-def roc_curve(label: np.ndarray, score: np.ndarray):
-    """`sklearn.metrics.roc_curve(label, score)` (pos_label 1,
-    drop_intermediate=True) -> (fpr, tpr)."""
-    order = np.argsort(-score, kind="stable")
-    score, label = score[order], label[order].astype(np.float64)
-    # indices where the (descending) score changes, plus the curve's end
-    threshold_idxs = np.r_[np.nonzero(np.diff(score))[0], label.size - 1]
-    tps = np.cumsum(label)[threshold_idxs]
-    fps = 1 + threshold_idxs.astype(np.float64) - tps
-    if fps.shape[0] > 2:  # drop points collinear with their neighbours
-        keep = np.r_[True, np.logical_or(np.diff(fps, 2), np.diff(tps, 2)),
-                     True]
-        fps, tps = fps[keep], tps[keep]
-    tps = np.r_[0.0, tps]
-    fps = np.r_[0.0, fps]
-    return fps / fps[-1], tps / tps[-1]
 
 
 def roc_acc_and_tarfar(features: np.ndarray, issame: Sequence[bool]):

@@ -13,6 +13,8 @@ The port's own numpy copy of `msml_tpu/eval/verification.py`. Parity target
     fold at once, by sorting the fold's distances (`_below`): the loop's
     values bit for bit, and its ZeroDivisionError where it divides by
     zero, in a few ms where the loop took ~1 s a call at 40 pairs
+  * roc_curve — `sklearn.metrics.roc_curve` in numpy, without sklearn,
+    for the host sweep's and IJB's curves
   * test() — batched embedding extraction with orig + flip sum, the
     overlapping tail window (`_data = data[bb - batch_size: bb]`,
     verification.py:262, kept for parity), l2 normalize, xnorm
@@ -172,6 +174,24 @@ def evaluate(embeddings: np.ndarray, actual_issame: Sequence[bool],
 def l2_normalize_np(x: np.ndarray) -> np.ndarray:
     """sklearn.preprocessing.normalize parity."""
     return x / np.maximum(np.linalg.norm(x, axis=1, keepdims=True), 1e-12)
+
+
+def roc_curve(label: np.ndarray, score: np.ndarray):
+    """`sklearn.metrics.roc_curve(label, score)` (pos_label 1,
+    drop_intermediate=True) -> (fpr, tpr)."""
+    order = np.argsort(-score, kind="stable")
+    score, label = score[order], label[order].astype(np.float64)
+    # indices where the (descending) score changes, plus the curve's end
+    threshold_idxs = np.r_[np.nonzero(np.diff(score))[0], label.size - 1]
+    tps = np.cumsum(label)[threshold_idxs]
+    fps = 1 + threshold_idxs.astype(np.float64) - tps
+    if fps.shape[0] > 2:  # drop points collinear with their neighbours
+        keep = np.r_[True, np.logical_or(np.diff(fps, 2), np.diff(tps, 2)),
+                     True]
+        fps, tps = fps[keep], tps[keep]
+    tps = np.r_[0.0, tps]
+    fps = np.r_[0.0, fps]
+    return fps / fps[-1], tps / tps[-1]
 
 
 def extract_embeddings(data_list: List[np.ndarray],

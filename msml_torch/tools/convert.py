@@ -9,7 +9,11 @@ their peer-guided parts (`conv_m` as `.conv_m.0` / `.conv_m.1`, the towers
 `conv1` / `conv2` as `.0` to `.5`), the frozen iResNet teacher (`peer` ->
 `frb.peer.*`), the recover decoder (`frb/decoder` -> `frb.decoder.*`, under
 the flax names: the JAX exporter refuses a decoder and so names none), the
-U-Net and the classification head. The trees are nested dicts of numpy
+U-Net and the classification head; and, with `network`, the eval-only
+baselines of `cli.test --network`: `Sphere` (`import_torch.py:257-277`),
+the BasicBlock `ResNet` (torchvision's names; JAX has no importer) and
+`LResNetOcc` / `From2021` (`import_torch.py:287-347`; From2021's flax tree
+sits under `model`). The trees are nested dicts of numpy
 arrays (e.g. from `jax.device_get`); no JAX or flax is needed here. The
 state dict carries the reference's torch names, so
 `MSML.load_state_dict(..., strict=True)` takes it.
@@ -20,7 +24,12 @@ Layouts (flax -> torch; the inverse undoes each):
   frb.fc (H*W*C, out)   -> (out, C*H*W): the flax model flattens HWC, the
                            reference and the port flatten C-major; H = W = 7,
                            C = 512 for iResNet, H = W = 8, C = 128 for
-                           LightCNN (`export_torch.py:222`)
+                           LightCNN (`export_torch.py:222`); the
+                           baselines' fc and FROM's `regress.2` / `fc.2` at
+                           their last map (7 x 6 x 512 at 112 x 96)
+  BN1d over a flatten   -> FROM's `regress.0` / `fc.0`: each vector from
+                           HWC to C-major order (`_flat_perm`,
+                           `import_torch.py:279-284`)
   BN     scale/bias/mean/var -> weight/bias/running_mean/running_var
                                 (+ num_batches_tracked = 0)
   features BatchNorm1d  -> weight = ones (frozen at 1.0, iresnet.py:119-120;
@@ -39,9 +48,11 @@ from typing import Callable, Dict, List, Tuple
 import numpy as np
 import torch
 
+from msml_torch.nn.baselines import final_map
+
 Path = Tuple[str, ...]
-FC_HW = 7  # iResNet's final 7 x 7 map at 112 input
-LIGHT_FC_HW = 8  # LightCNN's final 8 x 8 map at 128 input
+FC_HW = (7, 7)  # iResNet's final 7 x 7 map at 112 input
+LIGHT_FC_HW = (8, 8)  # LightCNN's final 8 x 8 map at 128 input
 
 
 def _get(tree, path: Path) -> np.ndarray:
@@ -95,10 +106,24 @@ class _Layout:
     def prelu(self, dst: str, path: Path):
         self.leaf(dst + ".weight", "params", path + ("alpha",))
 
-    def fc(self, dst: str, path: Path, hw: int):
-        """A dense over a C-major flatten of an hw x hw map."""
-        self.leaf(dst + ".weight", "params", path + ("kernel",), f"fc{hw}")
-        self.leaf(dst + ".bias", "params", path + ("bias",))
+    def fc(self, dst: str, path: Path, hw, bias: bool = True):
+        """A dense over a C-major flatten of an h x w map (hw = (h, w))."""
+        self.leaf(dst + ".weight", "params", path + ("kernel",),
+                  "fc%dx%d" % tuple(hw))
+        if bias:
+            self.leaf(dst + ".bias", "params", path + ("bias",))
+
+    def bn1d_flat(self, dst: str, path: Path, hw):
+        """A BatchNorm1d over a C-major flatten of an h x w map: each of
+        its vectors in the other order on the flax side."""
+        kind = "flat%dx%d" % tuple(hw)
+        self.leaf(dst + ".weight", "params", path + ("scale",), kind)
+        self.leaf(dst + ".bias", "params", path + ("bias",), kind)
+        self.leaf(dst + ".running_mean", "batch_stats", path + ("mean",),
+                  kind)
+        self.leaf(dst + ".running_var", "batch_stats", path + ("var",),
+                  kind)
+        self.leaf(dst + ".num_batches_tracked", None, (), "zero")
 
 
 def _stage(e: _Layout, dst: str, path: Path):
@@ -238,6 +263,104 @@ def _walk(e: _Layout) -> _Layout:
     return e
 
 
+def _sphere(e: _Layout, hw):
+    """Sphere (`msml_tpu/tools/import_torch.py:257-277`): flax
+    `layer{n}_conv`, `layer{n}_prelu`, `layer{n}_block{b}` -> torch
+    `layer{n}.0`, `layer{n}.1`, `layer{n}.{2 + b}`."""
+    for li in range(1, 5):
+        e.conv(f"layer{li}.0", (f"layer{li}_conv",), bias=True)
+        e.prelu(f"layer{li}.1", (f"layer{li}_prelu",))
+        b = 0
+        while e.has((f"layer{li}_block{b}",), f"layer{li}.{2 + b}."):
+            d, p = f"layer{li}.{2 + b}", (f"layer{li}_block{b}",)
+            for ci in (1, 2):
+                e.conv(f"{d}.conv{ci}", p + (f"conv{ci}",))
+                e.prelu(f"{d}.prelu{ci}", p + (f"prelu{ci}",))
+            b += 1
+    e.fc("fc", ("fc",), hw)
+
+
+def _resnet(e: _Layout, hw):
+    """The BasicBlock ResNet: flax `layer{n}_block{b}` -> torchvision's
+    `layer{n}.{b}`."""
+    e.conv("conv1", ("conv1",))
+    e.bn("bn1", ("bn1",))
+    for li in range(1, 5):
+        b = 0
+        while e.has((f"layer{li}_block{b}",), f"layer{li}.{b}."):
+            d, p = f"layer{li}.{b}", (f"layer{li}_block{b}",)
+            for ci in (1, 2):
+                e.conv(f"{d}.conv{ci}", p + (f"conv{ci}",))
+                e.bn(f"{d}.bn{ci}", p + (f"bn{ci}",))
+            if e.has(p + ("downsample_conv",), d + ".downsample."):
+                e.conv(d + ".downsample.0", p + ("downsample_conv",))
+                e.bn(d + ".downsample.1", p + ("downsample_bn",))
+            b += 1
+    e.bn("bn2", ("bn2",))
+    e.fc("fc", ("fc",), hw)
+
+
+def _lresnet_occ(e: _Layout, hw, root: Path = ()):
+    """LResNetOcc (`msml_tpu/tools/import_torch.py:287-347`) under `root`
+    (`("model",)` for From2021): `prelu1` in the blocks, the Sequential
+    indices of `mask`, `regress` and `fc`, and the heads' BN1d and linear
+    rows over the C-major flatten."""
+    e.conv("conv1", root + ("conv1",))
+    e.bn("bn1", root + ("bn1",))
+    e.prelu("prelu1", root + ("prelu1",))
+    for li in range(1, 5):
+        b = 0
+        while e.has(root + (f"layer{li}_block{b}",), f"layer{li}.{b}."):
+            d, p = f"layer{li}.{b}", root + (f"layer{li}_block{b}",)
+            e.bn(d + ".bn1", p + ("bn1",))
+            e.conv(d + ".conv1", p + ("conv1",))
+            e.bn(d + ".bn2", p + ("bn2",))
+            e.prelu(d + ".prelu1", p + ("prelu",))
+            e.conv(d + ".conv2", p + ("conv2",))
+            e.bn(d + ".bn3", p + ("bn3",))
+            if e.has(p + ("downsample_conv",), d + ".downsample."):
+                e.conv(d + ".downsample.0", p + ("downsample_conv",))
+                e.bn(d + ".downsample.1", p + ("downsample_bn",))
+            b += 1
+    for leg in ("P5_1", "P5_2", "P4_1", "P4_2", "P3_1", "P3_2", "P6", "P7_2"):
+        e.conv(f"fpn.{leg}", root + ("fpn", leg), bias=True)
+    e.conv("mask.0", root + ("mask_conv0",))
+    e.prelu("mask.1", root + ("mask_prelu0",))
+    e.bn("mask.2", root + ("mask_bn0",))
+    e.conv("mask.3", root + ("mask_conv1",))
+    e.bn1d_flat("regress.0", root + ("regress_bn0",), hw)
+    e.fc("regress.2", root + ("regress_fc",), hw, bias=False)
+    e.bn("regress.3", root + ("regress_bn1",))
+    e.bn1d_flat("fc.0", root + ("fc_bn0",), hw)
+    e.fc("fc.2", root + ("fc_fc",), hw)
+    e.bn("fc.3", root + ("fc_bn1",))
+
+
+# network -> (walk(layout, (h, w) of the last map), default input (h, w))
+NETWORKS = {
+    "msml": (lambda e, hw: _walk(e), None),
+    "sphere": (_sphere, (112, 96)),
+    "resnet": (_resnet, (112, 112)),
+    "lresnet_occ": (_lresnet_occ, (112, 96)),
+    "from2021": (lambda e, hw: _lresnet_occ(e, hw, ("model",)), (112, 96)),
+}
+
+
+def _layout(e: _Layout, network: str, input_size) -> _Layout:
+    if network not in NETWORKS:
+        raise ValueError(f"unknown network {network!r} "
+                         f"({', '.join(NETWORKS)})")
+    walk, default = NETWORKS[network]
+    walk(e, None if default is None else final_map(input_size or default))
+    return e
+
+
+def _hw(kind: str) -> Tuple[int, int]:
+    """(h, w) of an "fc{h}x{w}" or "flat{h}x{w}" leaf kind."""
+    h, w = kind.removeprefix("flat").removeprefix("fc").split("x")
+    return int(h), int(w)
+
+
 class _Emitter(_Layout):
     """The walk over flax trees; `out` is the state dict it gives, as
     numpy arrays."""
@@ -256,46 +379,60 @@ class _Emitter(_Layout):
             v = _get(self.trees[tree or "params"], path)
             if kind == "conv":  # HWIO -> OIHW; transposed (kh,kw,O,I) -> IO
                 v = np.transpose(v, (3, 2, 0, 1))
-            elif kind.startswith("fc"):
-                hw = int(kind[2:])
-                c, out_dim = v.shape[0] // hw ** 2, v.shape[1]
-                v = np.transpose(v.reshape(hw, hw, c, out_dim),
+            elif kind.startswith("fc"):  # HWC rows -> C-major columns
+                h, w = _hw(kind)
+                c, out_dim = v.shape[0] // (h * w), v.shape[1]
+                v = np.transpose(v.reshape(h, w, c, out_dim),
                                  (3, 2, 0, 1)).reshape(out_dim, -1)
+            elif kind.startswith("flat"):  # an HWC vector -> C-major
+                h, w = _hw(kind)
+                v = np.transpose(v.reshape(h, w, -1), (2, 0, 1)).reshape(-1)
             elif kind == "ones":
                 v = np.ones_like(v)
             out[key] = v
         return out
 
 
-def state_dict_from_jax(params: Dict, batch_stats: Dict
+def state_dict_from_jax(params: Dict, batch_stats: Dict,
+                        network: str = "msml", input_size=None
                         ) -> Dict[str, torch.Tensor]:
-    """(params, batch_stats) flax trees -> the port's MSML state dict."""
+    """(params, batch_stats) flax trees -> the port's state dict of
+    `network` ("msml", or a baseline: "sphere", "resnet", "lresnet_occ",
+    "from2021"; a baseline's fc reads the last map of `input_size` (h, w),
+    by default the one it is evaluated at)."""
     return {k: torch.from_numpy(np.array(
         v, np.int64 if v.dtype == np.int64 else np.float32, order="C"))
-        for k, v in _walk(_Emitter(params, batch_stats)).out.items()}
+        for k, v in _layout(_Emitter(params, batch_stats), network,
+                            input_size).out.items()}
 
 
-def jax_from_state_dict(state_dict) -> Tuple[Dict, Dict]:
-    """The port's MSML state dict (tensors or arrays, torch names) ->
-    (params, batch_stats) flax trees of float32 numpy arrays: what
-    `msml_tpu.tools.import_torch.import_msml_checkpoint` makes of it.
-    `num_batches_tracked` and the `features` scale have no flax leaf and
-    are dropped."""
+def jax_from_state_dict(state_dict, network: str = "msml",
+                        input_size=None) -> Tuple[Dict, Dict]:
+    """The port's state dict of `network` (tensors or arrays, torch names)
+    -> (params, batch_stats) flax trees of float32 numpy arrays: what
+    `msml_tpu.tools.import_torch` makes of it (`import_msml_checkpoint`,
+    `import_sphere`, `import_from2021`). `num_batches_tracked` and the
+    `features` scale have no flax leaf and are dropped."""
     sd = {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
           else np.asarray(v) for k, v in state_dict.items()}
     trees = {"params": {}, "batch_stats": {}}
-    for key, tree, path, kind in _walk(_Layout(
-            lambda _, prefix: any(k.startswith(prefix) for k in sd))).leaves:
+    layout = _layout(_Layout(
+        lambda _, prefix: any(k.startswith(prefix) for k in sd)), network,
+        input_size)
+    for key, tree, path, kind in layout.leaves:
         if tree is None:
             continue
         v = sd[key]
         if kind == "conv":
             v = np.transpose(v, (2, 3, 1, 0))
         elif kind.startswith("fc"):
-            hw = int(kind[2:])
-            out_dim, c = v.shape[0], v.shape[1] // hw ** 2
-            v = np.transpose(v.reshape(out_dim, c, hw, hw),
+            h, w = _hw(kind)
+            out_dim, c = v.shape[0], v.shape[1] // (h * w)
+            v = np.transpose(v.reshape(out_dim, c, h, w),
                              (2, 3, 1, 0)).reshape(-1, out_dim)
+        elif kind.startswith("flat"):
+            h, w = _hw(kind)
+            v = np.transpose(v.reshape(-1, h, w), (1, 2, 0)).reshape(-1)
         _set(trees[tree], path, np.asarray(v, np.float32))
     return trees["params"], trees["batch_stats"]
 

@@ -67,6 +67,17 @@ def is_leaf(key: str) -> bool:
     return not key.endswith(STATS + (SCALE,))
 
 
+def warn_features_scale(sd: Dict[str, torch.Tensor],
+                        key: str = FEATURES_SCALE) -> None:
+    """Warn as the JAX package's importer does when the frozen `features`
+    scale at `key` is not 1.0 (the port keeps it at 1.0)."""
+    if key in sd and not np.allclose(
+            torch.as_tensor(sd[key]).float().numpy(), 1.0, atol=1e-5):
+        warnings.warn("features BN scale != 1.0 in checkpoint; "
+                      "our head has use_scale=False — accuracy may "
+                      "differ")
+
+
 def load_source(path: str) -> Dict[str, torch.Tensor]:
     """The weights in `path` as a state dict with the port's names."""
     if path.endswith(".npz"):
@@ -83,11 +94,7 @@ def load_source(path: str) -> Dict[str, torch.Tensor]:
             # vanilla iresnet / lightcnn .pth: treat as an frb trunk
             sd = {"frb." + k: v for k, v in sd.items()}
         sd = {k: v for k, v in sd.items() if not k.startswith("frb.decoder.")}
-        if FEATURES_SCALE in sd and not np.allclose(
-                sd[FEATURES_SCALE].float().numpy(), 1.0, atol=1e-5):
-            warnings.warn("features BN scale != 1.0 in checkpoint; "
-                          "our head has use_scale=False — accuracy may "
-                          "differ")
+        warn_features_scale(sd)
         return sd
     raise ValueError(f"unsupported weight file {path!r} (.npz or .pth)")
 

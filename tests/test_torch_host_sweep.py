@@ -272,10 +272,10 @@ def test_cli_passes_the_protocol_flags(folder, tmp_path, monkeypatch,
 
 
 @pytest.mark.parametrize("argv, message", [
-    (["--network", "iresnet18_v"], "not ported yet: --network"),
+    (["--network", "iresnet18_v"], "--network iresnet18_v requires --weight"),
     (["--vis"], "not ported yet: --vis"),
     (["--network", "iresnet18_v", "--quant", "int8"],
-     "not ported yet: --network iresnet18_v$"),
+     "^--network iresnet18_v requires --weight .pth$"),
     (["--device-sweep", "--protocol", "NB"],
      "--device-sweep supports protocol BB only"),
     ([], "--weight_folder required")])

@@ -17,7 +17,7 @@ PORT_FILES = sorted(
                          recursive=True)
     if "_build" not in p.split(os.sep)) + [os.path.join(REPO, "chip_smoke.py")]
 # absent on the card's machine, or kept out of import time
-LAZY = ("triton", "yaml", "cv2", "PIL")
+LAZY = ("triton", "yaml", "cv2", "PIL", "matplotlib")
 # the RecordIO dataset's modules import Pillow with themselves: only the
 # CLI's RecordIO branch imports them
 TOP_LEVEL_OK = {os.path.join("msml_torch", "data", "rand_occ.py"): ("PIL",),
@@ -73,6 +73,17 @@ def test_lightcnn_recipe_modules_are_checked():
         assert os.path.join(REPO, "msml_torch", *rel) in PORT_FILES, rel
 
 
+def test_baseline_and_ijb_modules_are_checked():
+    """The baselines' and IJB's modules are among the files whose imports
+    `test_port_imports_no_jax` holds (no jax, no msml_tpu; cv2, Pillow and
+    matplotlib only inside functions)."""
+    for rel in (("nn", "baselines.py"), ("nn", "from2021.py"),
+                ("cli", "test.py"), ("eval", "ijb.py"),
+                ("cli", "eval_ijb.py"),
+                ("tools", "make_synthetic_eval_fixtures.py")):
+        assert os.path.join(REPO, "msml_torch", *rel) in PORT_FILES, rel
+
+
 @pytest.fixture
 def arc18_cfg():
     from msml_torch.core.config import config_init, load_yaml
@@ -109,8 +120,7 @@ def test_entry_points_default_to_cuda(arc18_cfg, tmp_path):
 def test_cli_refuses_what_is_not_ported():
     from msml_torch.cli import test as cli_test
 
-    for argv in (["--network", "iresnet18_v"], ["--vis"],
-                 ["--device-sweep", "--vis"]):
+    for argv in (["--vis"], ["--device-sweep", "--vis"]):
         with pytest.raises(SystemExit, match="not ported yet"):
             cli_test.main(cli_test.parse_args(argv + ["--device", "cpu"]))
 
